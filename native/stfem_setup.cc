@@ -1,6 +1,6 @@
 // Native setup runtime for stfem_tpu.
 //
-// The compute path is JAX/XLA on TPU; this library covers the host-side
+// The compute path is JAX/XLA on the accelerator; this library covers the host-side
 // runtime work that the reference implements in C++ (deal.II's DoF/sparsity
 // setup and DataOut writers): index-map generation for the banded assembled
 // operators and Vanka patches, dof valence fields, and a fast binary VTK

@@ -1,7 +1,7 @@
-"""stfem_tpu: TPU-native space-time finite-element multigrid framework.
+"""stfem_tpu: space-time finite-element multigrid framework in JAX.
 
 Capabilities of immaaane/dealii-stfem (Margenberg & Munch space-time
-multigrid, arXiv:2408.04372 / arXiv:2502.09159) rebuilt for JAX/XLA on TPU.
+multigrid, arXiv:2408.04372 / arXiv:2502.09159) rebuilt for JAX/XLA on GPUs.
 See ARCHITECTURE.md for the design and STATUS.md for the component map.
 """
 

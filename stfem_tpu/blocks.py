@@ -1,6 +1,6 @@
 """Flat block index <-> (timestep, variable, timedof) mapping.
 
-In the TPU build a space-time block vector is ONE dense array with a leading
+Here a space-time block vector is ONE dense array with a leading
 block axis of length n_blocks = n_timesteps_at_once * n_variables * n_timedofs;
 this module provides the index arithmetic connecting that axis to the
 (timestep, variable, timedof) triple (reference include/fe_time.h:901-1221).

@@ -1,4 +1,4 @@
-"""Heat/wave convergence driver: the tp_01 application rebuilt TPU-native
+"""Heat/wave convergence driver: the tp_01 application rebuilt in JAX
 (reference tests/tp_01.cc).  One call = one (refinement, degree) cycle:
 build mesh/operators/tables, march the time loop, return errors + iteration
 counts for the convergence tables.
@@ -83,7 +83,7 @@ def run_heat_cycle(refinement: int, fe_degree: int,
     timer: optional utils.timer.TimerOutput -- records "setup" and "step"
     scopes (the reference's TimerOutput scopes, tp_01.cc:648,709-710; inside
     one jitted slab solve XLA fuses vmult/vanka/gmg, so the per-step wall
-    time is the honest granularity on TPU).
+    time is the honest granularity on an accelerator).
     """
     from contextlib import nullcontext
     dim = len(subdivisions)

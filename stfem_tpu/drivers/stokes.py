@@ -1,4 +1,4 @@
-"""Stokes convergence driver: the tp_03stokes application rebuilt TPU-native
+"""Stokes convergence driver: the tp_03stokes application rebuilt in JAX
 (reference tests/tp_03stokes.cc): Q_{k+1}^dim velocity x DGP(k) pressure,
 strong Dirichlet BCs, mean-pressure normalization, space-time errors for u
 (incl. Hdiv-semi) and p."""
@@ -752,7 +752,7 @@ def dfg_cylinder_map(center, half_width: float = 0.05,
     """Smooth compactly-supported morph (x,y)->(x,y) that carries the square
     obstacle boundary {max(|x-cx|,|y-cy|) = half_width} exactly onto the
     circle of the given radius, decaying to the identity at distance
-    `support` from the obstacle center.  The TPU-native analogue of the
+    `support` from the obstacle center.  The structured-mesh analogue of the
     reference's dfgBenchmark curved manifolds (grids.h:196-242): instead of
     attaching a CylindricalManifold to a multiblock grid we morph the masked
     tensor grid, keeping the pure-arithmetic DoF indexing.

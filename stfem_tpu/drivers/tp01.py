@@ -77,7 +77,9 @@ def run_single(p: Parameters, k: int, ref: int,
 
 
 def run_config(p: Parameters, precondition_float: bool = True,
-               out=sys.stdout):
+               out=sys.stdout) -> list:
+    """Print the config's convergence and iteration tables; returns the
+    per-cell results in sweep order."""
     from ..utils.timer import TimerOutput
     table = ConvergenceTable()
     itable_rows = []
@@ -85,10 +87,12 @@ def run_config(p: Parameters, precondition_float: bool = True,
     if not p.space_time_conv_test and os.path.exists(p.functional_file):
         os.remove(p.functional_file)
     k0 = p.fe_degree
+    results = []
     for k in range(k0, k0 + p.n_deg_cycles):
         iters_row = {"k \\ r": k}
         for ref in range(p.refinement, p.refinement + p.n_ref_cycles):
             res = run_single(p, k, ref, precondition_float, timer)
+            results.append(res)
             print(f":: Number of active cells: {res.n_cells}", file=out)
             print(f":: Number of degrees of freedom: {res.n_dofs}", file=out)
             print(f"Average GMRES iterations {res.avg_iterations:g} "
@@ -124,9 +128,18 @@ def run_config(p: Parameters, precondition_float: bool = True,
         # reference tp_01.cc:709-710 (printTiming -> TimerOutput wall stats)
         print(timer.summary(), file=out)
         print("", file=out)
+    return results
 
 
-def main(argv=None):
+def main(argv=None) -> list:
+    """CLI entry; returns one result list per config run."""
+    import jax
+
+    from ..utils.runtime import configure_compile_cache
+
+    # the reference's outer solver runs in f64 (time_integrators.h:56-59)
+    jax.config.update("jax_enable_x64", True)
+    configure_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--file", "-f", default="default")
     ap.add_argument("--dim", "-d", type=int, default=2)
@@ -149,14 +162,15 @@ def main(argv=None):
                    ("", "tf06.json"),
                    ("WAVE single step", "tf07.json"),
                    ("", "tf08.json")]
+        results = []
         for header, name in configs:
             if header:
                 print(header)
             p = Parameters.parse(os.path.join(test_dir, name), args.dim)
-            run_config(p, args.precondition_float)
-    else:
-        p = Parameters.parse(args.file, args.dim)
-        run_config(p, args.precondition_float)
+            results.append(run_config(p, args.precondition_float))
+        return results
+    p = Parameters.parse(args.file, args.dim)
+    return [run_config(p, args.precondition_float)]
 
 
 if __name__ == "__main__":

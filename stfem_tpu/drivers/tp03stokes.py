@@ -160,10 +160,17 @@ def run_config(p: Parameters, stokes_extra: StokesParameters,
 
 
 def main(argv=None):
+    import jax
+
+    from ..utils.runtime import configure_compile_cache
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--file", "-f", default="default")
     ap.add_argument("--dim", "-d", type=int, default=2)
     args = ap.parse_args(argv)
+    # the reference's outer solver runs in f64 (time_integrators.h:56-59)
+    jax.config.update("jax_enable_x64", True)
+    configure_compile_cache()
     test_dir = os.environ.get("STFEM_TESTDIR", "/root/reference/tests/json")
 
     def run_one(path):

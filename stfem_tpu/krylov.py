@@ -8,7 +8,7 @@ residual estimate each iteration; iteration count returned.
 
 Design for XLA: fixed-size Krylov basis arrays + lax.while_loop; dynamic
 "loop over previous vectors" is replaced by full-basis matmuls against
-zero-initialized rows (mathematically identical, MXU-friendly).  The
+zero-initialized rows (mathematically identical, matmul-shaped).  The
 preconditioner is an arbitrary traceable callable (here: the full STMG
 V-cycle), compiled into the same program.
 """
@@ -111,8 +111,7 @@ def fgmres(A: Callable, b: jnp.ndarray, x0: jnp.ndarray,
     # the new basis row rides the carry as `vnext` and is inserted at the
     # START of the next iteration, BEFORE any read of V: a read-then-write
     # of the carried basis forces XLA to copy the whole (m_pad, n) buffer
-    # every iteration (measured 3.5 ms/iter at 16^3, ~40% of the
-    # GS-and-glue cost); write-before-read updates stay in place, and the
+    # every iteration; write-before-read updates stay in place, and the
     # pending row doubles as the V[j] read
     vnext = jnp.where(beta > 0,
                       (r0 / jnp.where(beta == 0, 1, beta)).reshape(-1), 0)
@@ -135,7 +134,8 @@ def fgmres(A: Callable, b: jnp.ndarray, x0: jnp.ndarray,
         # cover rows 0..j is exact -- and reads only the filled prefix of
         # the basis instead of all m+1 rows (basis traffic is the dominant
         # outer-solver cost at 16^3+: 105 MB/vector).  True-f32 products
-        # (TPU matmuls default to bf16 passes, which breaks the
+        # (accelerator f32 matmuls default to reduced-precision passes --
+        # TF32 on the GPU -- which breaks the
         # orthogonality the residual estimate relies on)
         CH = _CH
         n_active = j // CH + 1
@@ -197,8 +197,7 @@ def fgmres(A: Callable, b: jnp.ndarray, x0: jnp.ndarray,
         #   c[i+1]  = -sn[i] c[i] + cs[i] h[i+1],  c[0] = h[0]
         # is a first-order affine recurrence in the carried value c --
         # evaluated as an associative scan (log2(m) tiny ops) instead of the
-        # m sequential fori_loop trips, which cost ~0.1 ms/trip of pure
-        # dispatch latency on TPU.  Rotations i >= j compose as identity
+        # m sequential fori_loop trips, each a dependent launch.  Rotations i >= j compose as identity
         # (a=1, b=0), so c saturates at c[j] and the scan length is static.
         idx_m = jnp.arange(m)
         act = idx_m < j
@@ -263,8 +262,8 @@ def richardson_solve(A: Callable, b: jnp.ndarray, x0: jnp.ndarray,
     per-step TRUE-residual convergence check (the residual is computed for
     the update anyway, so the check costs one norm reduction).
 
-    Rationale: the outer FGMRES's Krylov glue (basis HBM traffic,
-    Gram-Schmidt, Givens) costs ~27 ms of a ~58 ms iteration at 16^3 while
+    Rationale: the outer FGMRES's Krylov glue (basis memory traffic,
+    Gram-Schmidt, Givens) is a large share of each iteration at 16^3, while
     Richardson's step is just matvec + V-cycle; whenever the V-cycle error
     propagator's spectral radius rho is below ~0.5 the glue-free iteration
     wins wall-clock despite needing more steps.  Residual semantics match

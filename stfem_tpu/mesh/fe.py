@@ -3,8 +3,8 @@
 Continuous Q_k elements use Gauss-Lobatto support points (deal.II FE_Q
 convention, which matters for nodal interpolation and p-transfer parity).
 The tensor-product structure means ALL spatial operators reduce to these 1D
-matrices applied axis-by-axis (sum factorization) -- on TPU each application
-is a small dense matmul that XLA maps onto the MXU.
+matrices applied axis-by-axis (sum factorization) -- each application is a
+small dense matmul.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Structured (block-Cartesian, optionally distorted) hex meshes.
 
-The TPU-native replacement for the reference's p4est forests: DoF indexing is
+The structured replacement for the reference's p4est forests: DoF indexing is
 pure arithmetic on a tensor grid, so matrix-free apply is sum-factorized
 einsums and the mesh itself is just {cell counts, bounding box, optional
 vertex displacement field}.  Covers every shipped test/benchmark config of
@@ -58,7 +58,7 @@ class StructuredMesh:
 
         vertex_map: optional smooth map applied to the vertex grid
         ((..., dim) -> (..., dim)), e.g. the squircle morph that turns the
-        dfgBenchmarkSquare obstacle into the DFG cylinder (the TPU-native
+        dfgBenchmarkSquare obstacle into the DFG cylinder (the structured
         analogue of the reference's curved manifolds, grids.h:196-242);
         geometry then uses the general per-cell Q1-mapping path.
 

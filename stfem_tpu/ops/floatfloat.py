@@ -1,14 +1,14 @@
-"""Float-float (double-single) arithmetic for the IR residual on TPU.
+"""Float-float (double-single) arithmetic for the IR residual.
 
 The iterative-refinement residual r = b - A x needs ~1e-9 RELATIVE absolute
-accuracy (the true-1e-8 contract), far beyond f32 but far short of f64.  On
-TPU, x64 is software-emulated through integer ops -- every f64 flop costs
-tens of scalar int ops and lowers poorly on the VPU.  A float-float number
-(value = hi + lo, two f32s, ~49-bit effective mantissa, |lo| <= ulp(hi)/2)
-reaches ~2^-48 relative error per operation using only NATIVE f32 VPU ops
-via error-free transformations (Knuth two-sum, Dekker split two-product):
-~20-30 f32 flops per emulated FMA instead of the x64 emulation's int-op
-cascades, with the same HBM footprint as f64 (2 words).
+accuracy (the true-1e-8 contract), far beyond f32 but far short of f64.  A
+float-float number (value = hi + lo, two f32s, ~49-bit effective mantissa,
+|lo| <= ulp(hi)/2) reaches ~2^-48 relative error per operation using only
+f32 arithmetic via error-free transformations (Knuth two-sum, split
+two-product): ~20-30 f32 flops per emulated FMA, with the same memory
+footprint as f64 (2 words).  It is the bench's default residual engine;
+whether it beats native f64 on a given accelerator is a measurement
+(ROADMAP Speed 5).
 
 Used by the banded Kronecker residual apply (KronAssembledFF below): the
 1D assembled matrices and the Alpha/Beta step tables are stored as ff pairs
@@ -18,11 +18,16 @@ with the native-f64 residual to ~1e-12 relative (tests/test_aux.py).
 
 NOTE on XLA semantics: error-free transforms rely on IEEE f32 evaluation
 order.  XLA preserves floating-point semantics for explicit elementwise
-graphs (no unsafe reassociation), and fusing a*b-p into an fma only makes
-the error term MORE exact; the parity test pins this on both backends.
+graphs (no unsafe reassociation), but a GPU backend may contract a multiply
+feeding an add into one fused multiply-add.  Fusing a*b - p only makes the
+error term MORE exact; the classic Dekker split ca - (ca - a) with
+ca = 4097 a is NOT safe under contraction (fma(4097, a, -a) skips the
+rounding of ca that the split relies on).  _split therefore masks the low
+mantissa bits through an integer bitcast, which no contraction can change.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -31,7 +36,9 @@ from ..utils.module import register_module
 __all__ = ["ff_from_f64", "ff_to_f64", "ff_add", "ff_add_f32", "ff_mul",
            "ff_mul_f32", "ff_neg", "KronAssembledFF"]
 
-_SPLIT = np.float32(4097.0)     # 2^12 + 1 (Dekker split for 24-bit mantissa)
+# keeps the sign, exponent and the top 11 explicit mantissa bits: the high
+# part carries 12 significant bits, so products of two halves are exact
+_HI_MASK = np.uint32(0xFFFFF000)
 
 
 def _two_sum(a, b):
@@ -49,15 +56,19 @@ def _quick_two_sum(a, b):
     return s, err
 
 
+def _split(a):
+    """a = hi + lo exactly, each half with at most 12 significant bits
+    (f32 only; the bit mask is immune to fused multiply-add contraction)."""
+    bits = jax.lax.bitcast_convert_type(a, jnp.uint32)
+    hi = jax.lax.bitcast_convert_type(bits & _HI_MASK, jnp.float32)
+    return hi, a - hi
+
+
 def _two_prod(a, b):
-    """Error-free a * b = p + err (Dekker split, 17 flops without fma)."""
+    """Error-free a * b = p + err (split product)."""
     p = a * b
-    ca = _SPLIT * a
-    ah = ca - (ca - a)
-    al = a - ah
-    cb = _SPLIT * b
-    bh = cb - (cb - b)
-    bl = b - bh
+    ah, al = _split(a)
+    bh, bl = _split(b)
     err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
     return p, err
 
@@ -147,17 +158,9 @@ class KronAssembledFF:
             A1 = np.asarray(kron64.A1[d], np.float64)
             self.Md.append(ff_from_f64(_to_diags(M1, self.k)))
             self.Ad.append(ff_from_f64(_to_diags(A1, self.k)))
-        # stacked per-axis factors for the fused Pallas kernel (cubic 3D)
-        from .pallas_ffresid import supports as _pf_supports
-        nds = [int(self.Md[d][0].shape[1]) for d in range(self.dim)]
-        self._pallas_ok = _pf_supports(self.dim, nds)
-        if self._pallas_ok:
-            self._Dmh = jnp.stack([self.Md[d][0] for d in range(3)])
-            self._Dml = jnp.stack([self.Md[d][1] for d in range(3)])
-            self._Dah = jnp.stack([self.Ad[d][0] for d in range(3)])
-            self._Dal = jnp.stack([self.Ad[d][1] for d in range(3)])
 
-    def _pair_xla(self, xff, need_K: bool = True, need_M: bool = True):
+    def pair(self, xff, need_K: bool = True, need_M: bool = True):
+        """(K x, M x) in ff; either may be None when not requested."""
         dim, k = self.dim, self.k
         lead = xff[0].ndim - dim
         val = xff
@@ -172,49 +175,6 @@ class KronAssembledFF:
             if need_M or (need_K and d < dim - 1):
                 val = _ff_banded_axis_apply(self.Md[d], val, ax, k)
         return (ks if need_K else None), (val if need_M else None)
-
-    def pair(self, xff, need_K: bool = True, need_M: bool = True):
-        """(K x, M x) in ff.  On TPU, cubic 3D grids route through the
-        fused Pallas kernel (ops/pallas_ffresid.py -- one VMEM-resident
-        block per grid step instead of HBM-materialized ff temporaries);
-        CPU and non-cubic shapes keep the XLA form (the parity oracle).
-        STFEM_PALLAS_FF=0 forces XLA everywhere."""
-        import os
-
-        import jax as _jax
-
-        hi, lo = xff
-        # default OFF: the fused kernel is numerically exact (interpret
-        # parity ~1e-15) but its Mosaic compile is pathological on the
-        # current toolchain (>10 min for the 63-roll ff chain; compile
-        # time grows superlinearly in the chain length -- measured 25 s
-        # for 1 banded apply, 173 s for 2).  STFEM_PALLAS_FF=1 opts in.
-        if not (need_K and need_M and self._pallas_ok
-                and hi.ndim >= self.dim
-                and os.environ.get("STFEM_PALLAS_FF", "0") == "1"):
-            return self._pair_xla(xff, need_K, need_M)
-        from .pallas_ffresid import kron_pair_ff_pallas
-        n = int(self.Md[0][0].shape[1])
-        lead_shape = hi.shape[:-3]
-        B = int(np.prod(lead_shape)) if lead_shape else 1
-        xh = hi.reshape(B, n, n, n)
-        xl = lo.reshape(B, n, n, n)
-
-        def _tpu(ops):
-            xh_, xl_ = ops
-            return kron_pair_ff_pallas(xh_, xl_, self._Dmh, self._Dml,
-                                       self._Dah, self._Dal, self.k)
-
-        def _default(ops):
-            xh_, xl_ = ops
-            (kh, kl), (mh, ml) = self._pair_xla((xh_, xl_), True, True)
-            return kh, kl, mh, ml
-
-        Kh, Kl, Mh, Ml = _jax.lax.platform_dependent(
-            (xh, xl), tpu=_tpu, default=_default)
-        rs = lead_shape + (n, n, n)
-        return ((Kh.reshape(rs), Kl.reshape(rs)),
-                (Mh.reshape(rs), Ml.reshape(rs)))
 
 
 def ff_mix(table_ff, xff, pattern=None):
@@ -248,15 +208,15 @@ def ff_mix(table_ff, xff, pattern=None):
 
 @register_module
 class FFSlabResidual:
-    """Whole-slab true residual in float-float: the TPU replacement for the
-    emulated-f64 stepwise residual of the IR bench.
+    """Whole-slab true residual in float-float: the IR bench's default
+    high-precision residual (the native-f64 stepwise form is the other).
 
     Built once from the f64 operators and the full multi-step tables; holds
     the rectangular per-step tables (rows = one step's nt blocks, cols =
     [previous step's last dof, step blocks] -- the fused form of the
     block-bidiagonal structure) and the Gamma previous-SLAB coupling, all as
     ff pairs.  residual() runs one lax.scan over the steps with ~30 native
-    f32 flops per emulated FMA; no x64 ops anywhere.
+    f32 flops per emulated FMA; no f64 arrays anywhere.
     """
 
     def __init__(self, K64, M64, Alpha, Beta, Gamma, Gamma_K=None,
@@ -320,26 +280,7 @@ class FFSlabResidual:
             self.kron = kron_ff
             self.mask = _jnp.asarray(np.asarray(mask), _jnp.float32)
             return
-        kron64 = KronAssembled(K64, M64, _jnp.float64)
-        # Kronecker engine: "mxu" routes the banded applies through
-        # exact-sliced bf16 matmuls (ops/mxukron.py); "pallas9" routes them
-        # through the single-apply 9-roll Mosaic kernel
-        # (ops/pallas_ffband.py).  Default stays "xla"
-        # (elementwise ff): the MXU form is numerically exact (~1e-13) and
-        # compiles 2.6x faster, but MEASURED SLOWER end-to-end at the 16^3
-        # bench shape (step 165 vs 110 ms, chunk8 366 vs 233 -- the
-        # slice/transpose/recombine HBM traffic exceeds what the matmuls
-        # save; scripts/ffresid_mxu_lab.py).
-        import os as _os
-        _eng = _os.environ.get("STFEM_FF_KRON", "xla")
-        if _eng == "mxu":
-            from .mxukron import KronMXU
-            self.kron = KronMXU(kron64)
-        elif _eng == "pallas9":
-            from .pallas_ffband import KronPallas9
-            self.kron = KronPallas9(kron64)
-        else:
-            self.kron = KronAssembledFF(kron64)
+        self.kron = KronAssembledFF(KronAssembled(K64, M64, _jnp.float64))
         self.mask = _jnp.asarray(np.asarray(K64.mask_np), _jnp.float32)
 
     def rhs(self, prev_ff, fslab_ff, prev_v_ff=None):
@@ -373,10 +314,10 @@ class FFSlabResidual:
         """r = rhs - A_slab x in ff; returns ((r_hi, r_lo), ||r||, ||rhs||)
         with f32 norms (tree-reduction accuracy ~1e-6 relative -- plenty
         for IR scaling and the 1e-8 verification).  mode: "auto" maps to
-        the per-step lax.scan form ("step"), measured fastest at the 16^3
-        bench shape (78 ms vs slab 216 / chunk4 167 / chunk8 196 ms);
-        "slab"/"chunkN"/"unroll"/"step" force the experimental forms
-        (override via STFEM_FF_RESID_MODE)."""
+        the per-step lax.scan form ("step"), whose working set is one
+        step; "slab"/"chunkN"/"unroll"/"step" force the other forms
+        (override via STFEM_FF_RESID_MODE; an open A/B on the GPU,
+        ROADMAP Speed 5)."""
         import os as _os
         import jax as _jax
         import jax.numpy as _jnp
@@ -404,11 +345,9 @@ class FFSlabResidual:
 
         mode = _os.environ.get("STFEM_FF_RESID_MODE", mode)
         if mode == "auto":
-            # MEASURED (16^3 bench shape, r3): the per-step scan wins --
-            # 78 ms vs 216 (whole-slab batch) / 167 (chunk4) / 196
-            # (chunk8); the batched forms materialize their big ff
-            # temporaries through HBM, and on XLA:CPU the fused slab graph
-            # also compiles pathologically slowly.  Keep "step".
+            # the batched forms materialize their big ff temporaries in
+            # device memory, and on XLA:CPU the fused slab graph compiles
+            # pathologically slowly
             mode = "step"
         if mode == "slab":
             # ALL steps at once: move the block axis first ([nt+1, S, *dof])

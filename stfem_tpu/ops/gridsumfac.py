@@ -3,12 +3,10 @@
 On a tensor-product grid the cell-local Gauss points are DISJOINT (cell
 interior), so dof -> quadrature interpolation along one axis is a global
 banded 1D matrix (nc*q x nc*k+1) applied as a dense matmul, and its
-TRANSPOSE performs the inter-cell overlap-add accumulation ON THE MXU.
+TRANSPOSE performs the inter-cell overlap-add accumulation as a matmul.
 No cell gather, no overlap-add scatter, no small-axis transposes -- the
-three ops that dominate the cell-local path's wall clock on TPU (measured
-16^3 ntao=32: 32-45 ms/matvec cell-local vs the ~1-4 ms flop/HBM bound).
-The banded matrix costs ~nc x more MACs than the cell-local contraction,
-which the MXU absorbs; the win is removing the memory-layout traffic.
+memory-layout traffic of the cell-local path.  The banded matrix costs
+~nc x more MACs than the cell-local contraction, which matrix units absorb.
 
 Replaces the quadrature loop of the reference's MatrixFreeOperator
 (include/operators.h:967-1187) for the axis-aligned-geometry case; mapped
@@ -34,40 +32,12 @@ def _interleave(full: np.ndarray, cells, nq: int) -> np.ndarray:
     return a.reshape(tuple(int(cells[d]) * nq for d in range(dim)))
 
 
-def _rank1_factors(W: np.ndarray):
-    """Per-axis vectors (w_0, ..., w_{dim-1}) with W == outer(w_0, ..),
-    or None when W is not rank-1 separable (checked to 1e-11 relative)."""
-    dim = W.ndim
-    if np.any(W == 0.0) and np.all(W == 0.0):
-        return [np.zeros(W.shape[d]) for d in range(dim)]
-    # anchor at the largest entry for numerical safety
-    idx = np.unravel_index(np.argmax(np.abs(W)), W.shape)
-    a = W[idx]
-    if a == 0.0:
-        return None
-    facs = []
-    for d in range(dim):
-        sl = list(idx)
-        sl[d] = slice(None)
-        facs.append(np.array(W[tuple(sl)], np.float64))
-    scale = a ** (dim - 1)
-    rec = facs[0]
-    for d in range(1, dim):
-        rec = np.multiply.outer(rec, facs[d])
-    rec = rec / scale
-    if not np.allclose(rec, W, rtol=1e-11, atol=1e-13 * abs(a) ** dim):
-        return None
-    # fold the 1/scale into the first factor
-    facs[0] = facs[0] / scale
-    return facs
-
-
 def axis_apply(M, x, axis):
     """Contract M (out, in) against x's `axis`, result axis in place.
 
-    Default "tensordot" (moveaxis copies) MEASURES FASTER on TPU than the
-    in-place einsum contraction (16^3 grid matvec 8.9 vs 14.3 ms; XLA's
-    dot_general on a middle axis relayouts worse than explicit copies).
+    Default "tensordot" (moveaxis copies) instead of the in-place einsum
+    contraction, whose dot_general on a middle axis may relayout worse
+    than explicit copies (not yet timed on the GPU; ROADMAP Speed 5).
     STFEM_AX_STYLE=einsum for A/B.
     """
     import os
@@ -126,62 +96,10 @@ class GridSumFac:
         if K_op.coeff is not None:
             wK = wK * np.asarray(K_op.coeff, np.float64)
         self.Wa = []
-        Wa_np = []
         for e in range(dim):
             jf2 = np.asarray(K_op.jfac[e], np.float64) ** 2
             full = _interleave(np.broadcast_to(wK * jf2, qfull), cells, nq)
-            Wa_np.append(full)
             self.Wa.append(jnp.asarray(full, dtype))
-
-        # Fused Pallas path: per-block chains with the quadrature weights
-        # FACTORIZED per axis and folded into the transposed (integration)
-        # matrices, and the Alpha/Beta block mixing moved to the DOF side
-        # (it commutes with the spatial chains and dof arrays are ~8x
-        # smaller than quad arrays).  Requires rank-1-separable weight
-        # grids (uniform / tensor-step meshes without coefficient or cell
-        # mask -- checked numerically) and a per-block VMEM fit.
-        import os
-        from .pallas_grid import fits_vmem
-        Wb_np = _interleave(np.broadcast_to(wM, qfull), cells, nq)
-        # measured on-chip (16^3 ntao=32): the fused per-block chains LOSE
-        # to the optimized XLA grid path end-to-end (20.2 vs 23.7 MDoF/s) --
-        # the per-block kernels pad 65 -> 128 lanes on every axis and
-        # serialize 96 small programs, where XLA's reshaped 2D tensordots
-        # run at ~full lane utilization.  Kept as an opt-in experiment.
-        pg_default = "0"
-        self.pallas = False
-        self.upV = self.upG = None
-        if (os.environ.get("STFEM_PALLAS_GRID", pg_default) == "1"
-                and dim in (2, 3)
-                and int(np.prod(K_op.dof_shape)) >= int(os.environ.get(
-                    "STFEM_PALLAS_MIN_DOFS", "16384"))
-                and fits_vmem(K_op.dof_shape,
-                              [np.zeros((self.cells[d] * nq, 1))
-                               for d in range(dim)], dtype)):
-            facs = [_rank1_factors(W) for W in [Wb_np] + Wa_np]
-            if all(f is not None for f in facs):
-                self.pallas = True
-                wb = facs[0]
-                # rebuild numpy copies of Sg/Dg for the folds
-                Sg64, Dg64 = [], []
-                for d in range(dim):
-                    nc = self.cells[d]
-                    nd = nc * k + 1
-                    Sgd = np.zeros((nc * nq, nd))
-                    Dgd = np.zeros((nc * nq, nd))
-                    for c in range(nc):
-                        Sgd[c * nq:(c + 1) * nq, c * k:c * k + k + 1] = S1
-                        Dgd[c * nq:(c + 1) * nq, c * k:c * k + k + 1] = D1
-                    Sg64.append(Sgd)
-                    Dg64.append(Dgd)
-                self.upV = [jnp.asarray(Sg64[d].T * wb[d][None, :], dtype)
-                            for d in range(dim)]
-                self.upG = []
-                for e in range(dim):
-                    wa = facs[1 + e]
-                    self.upG.append([jnp.asarray(
-                        (Dg64[d] if d == e else Sg64[d]).T
-                        * wa[d][None, :], dtype) for d in range(dim)])
 
     def _ax(self, M, x, axis):
         return axis_apply(M, x, axis)
@@ -190,21 +108,6 @@ class GridSumFac:
         """x: [..., *dofshape] -> same shape; mix_a/mix_b map the leading
         block axis at the quadrature level (identity for plain operators)."""
         dim = self.dim
-        from .pallas_grid import is_disabled
-        if self.pallas and x.ndim == dim + 1 and not is_disabled():
-            from .pallas_grid import chain_down, chain_up
-            acc = None
-            if not beta_zero:
-                q = chain_down(mix_b(x), self.Sg)
-                acc = chain_up(q, self.upV)
-            if not alpha_zero:
-                xa = mix_a(x)
-                for e in range(dim):
-                    mats = [self.Dg[d] if d == e else self.Sg[d]
-                            for d in range(dim)]
-                    t = chain_up(chain_down(xa, mats), self.upG[e])
-                    acc = t if acc is None else acc + t
-            return acc
         lead = x.ndim - dim
         # forward with shared prefixes: after processing axis d, `val`
         # holds S_0..S_d u and grads[e<=d] the D_e variant

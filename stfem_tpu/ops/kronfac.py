@@ -14,10 +14,8 @@ the reference's under-integration quirk.
 
 One (Kx, Mx) pair costs 3*dim-1 DOF-sized per-axis matmuls instead of the
 quadrature-grid sum-factorization sweep's ~(dim^2 + 3 dim) QUAD-sized ones
-(plus the weight multiplies): at Q4/16^3 that is ~7x less HBM traffic, the
-binding resource on TPU.  Under emulated f64 (TPU software double-double)
-this is also the form with the FEWEST non-matmul ops, which is what wins
-there (see system.py routing notes).
+(plus the weight multiplies): at Q4/16^3 that is ~7x less memory traffic
+(counted from the shapes) for an apply that is memory-bound.
 
 The 1D factors are UNCONSTRAINED (no Dirichlet zeroing): constraint masking
 stays external (y = mask * A (mask * x)), which keeps the strong-Dirichlet
@@ -115,7 +113,6 @@ class KronAssembled:
         k, dim, n_q = K_op.degree, K_op.dim, K_op.n_q
         self.dim = dim
         self.k = k
-        self._f64 = np.dtype(dtype) == np.float64
         # style captured ONCE here (ADVICE r4: pair() must not re-read the
         # env -- a mid-life flip would find Md/Ad missing).  force_banded
         # is the programmatic halo-mode switch for sharded runs
@@ -146,12 +143,8 @@ class KronAssembled:
             self.M1.append(jnp.asarray(M1np, dtype))
             self.A1.append(jnp.asarray(A1np, dtype))
             # diagonal (banded) form, ALWAYS built (it is (2k+1, nd) --
-            # negligible storage): used by the emulated-f64 TPU apply
-            # (a dense 1D contraction in software double-double pays
-            # ~(nd/(2k+1))x more VPU ops than 2k+1 shifted elementwise
-            # FMAs, measured 4.4x at Q4/16^3, scripts/banded64_lab.py) and
-            # by the sharded halo mode, which may be enabled AFTER
-            # construction (enable_halo_mode)
+            # negligible storage): used by the sharded halo mode, which
+            # may be enabled AFTER construction (enable_halo_mode)
             self.Md.append(jnp.asarray(_to_diags(M1np, k), dtype))
             self.Ad.append(jnp.asarray(_to_diags(A1np, k), dtype))
 
@@ -185,27 +178,7 @@ class KronAssembled:
     def pair(self, x, need_K: bool = True, need_M: bool = True):
         """x: [..., *dofshape] -> (K_glob x, M_glob x); either result may be
         None when not requested.  The two share the mass-chain prefix:
-        3*dim-1 matmuls for both, dim for mass alone.
-
-        Under emulated f64 the TPU lowering uses the banded diagonal form
-        (4.4x measured, scripts/banded64_lab.py); CPU (native f64) and all
-        hardware dtypes keep the dense MXU matmuls."""
-        import jax
-
-        if self.force_banded or self._shifted:
-            # sharded halo mode (see _sharded_shifted / enable_halo_mode)
-            return self._pair_impl(x, need_K, need_M, banded=True)
-        if not self._f64:
-            return self._pair_impl(x, need_K, need_M, banded=False)
-
-        def _tpu(x_):
-            kk, mm = self._pair_impl(x_, need_K, need_M, banded=True)
-            return [t for t in (kk, mm) if t is not None]
-
-        def _default(x_):
-            kk, mm = self._pair_impl(x_, need_K, need_M, banded=False)
-            return [t for t in (kk, mm) if t is not None]
-
-        out = jax.lax.platform_dependent(x, tpu=_tpu, default=_default)
-        it = iter(out)
-        return (next(it) if need_K else None), (next(it) if need_M else None)
+        3*dim-1 matmuls for both, dim for mass alone.  Dense 1D matmuls,
+        except in the sharded halo mode, which takes the banded form."""
+        banded = self.force_banded or self._shifted
+        return self._pair_impl(x, need_K, need_M, banded=banded)

@@ -1,25 +1,21 @@
-"""Fused Pallas TPU kernel for the Vanka grid time-solve stage.
+"""Vanka grid time-solve stage: plain XLA form and a Pallas/Triton kernel.
 
 In the grid Vanka apply (stmg/vanka.py::_vmult_grid) the multi-step
 block-bidiagonal time solve
     y_s = Ginv w_s;   last_s = y_s[-1] + kappa * last_{s-1};
     y_s += last_{s-1} * cvec
 is elementwise over the flattened eigen-position axis N with tiny per-step
-(nt x nt) factors.  The XLA formulation (stacked FMAs + associative scan)
-is exact but materializes ~4 S*nt*N f32 temporaries through HBM; at the
-16^3 bench shape (S=32, nt=3, N=80^3) it measures 6.5 ms against a ~1 ms
-HBM bound (scripts/timesolve_lab.py).
+(nt x nt) factors.  The XLA form (stacked FMAs + associative scan) is exact
+but materializes several S*nt*N temporaries and log-depth scan passes
+through device memory.
 
-This kernel tiles N into lane-major (rows, 128) blocks that stay in VMEM:
-one grid program loads its (S*nt, TN) slab once, runs the whole mix +
-recurrence on-chip (the sequential S loop is FREE here -- it is unrolled
-over registers/VMEM, no HBM round trips), and writes only the final
-output: measured 1.1 ms at the bench shape, exact to bf16 resolution.
-
-TN is capped at 4096 lanes: TN=8192 miscompiles on current Mosaic
-(maxdiff 0.5 in the lab); 4096 is validated.  Callers route through
-jax.lax.platform_dependent so CPU lowers the XLA fallback and only TPU
-lowers the kernel.
+The GPU kernel runs one program per power-of-two tile of N (masked tail,
+since N = (cells*(k+1))^dim is rarely a power of two).  Each program keeps
+the nt*nt + nt factors of its tile in registers, loops over the S steps
+carrying the scalar recurrence, and reads w and writes the result exactly
+once.  time_solve() picks the kernel when lowering for CUDA and the XLA
+form everywhere else (host-pinned setup traces the same modules for the
+CPU).
 
 Replaces (performance-only) the per-patch solve loop of the reference's
 PreconditionVanka::vmult (include/stmg.h:832-872).
@@ -32,82 +28,82 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["pick_tile", "time_solve_pallas"]
+__all__ = ["time_solve", "time_solve_triton", "time_solve_xla"]
 
-_MAX_TN = 4096  # validated; 8192 miscompiles (timesolve_lab)
-_VMEM_BUDGET = 10 * 2 ** 20
-
-
-def pick_tile(N: int, S: int, nt: int, itemsize: int) -> int | None:
-    """Largest TN = 128*r with r dividing N//128, TN <= _MAX_TN, and the
-    per-program working set within the VMEM budget.  None if unsupported."""
-    if N % 128 or N <= 0:
-        return None
-    rows_total = N // 128
-    best = None
-    for r in range(1, min(rows_total, _MAX_TN // 128) + 1):
-        if rows_total % r:
-            continue
-        # Mosaic requires the second-minor block dim divisible by 8 unless
-        # it equals the full array dim (lowering check); 25-row tiles at
-        # 8^3 (N = 40^3) fail without this
-        if r % 8 and r != rows_total:
-            continue
-        tn = 128 * r
-        # in + out slabs (item dtype) + f32 working copy + nt f32 y rows
-        # + factors
-        bytes_ = tn * (S * nt * (2 * itemsize + 4 + 4)
-                       + (nt * nt + nt) * 4)
-        if bytes_ <= _VMEM_BUDGET:
-            best = tn
-    return best
+# tile of the position axis per program; a power of two (Triton block rule)
+BLOCK = 512
 
 
-def _kernel(S: int, nt: int, out_dtype, w_ref, g_ref, c_ref, o_ref):
-    ws = w_ref[...].astype(jnp.float32)       # (S*nt, rows, 128)
-    kap = c_ref[nt - 1]
-    prev = jnp.zeros_like(kap)
-    for s in range(S):
-        y_last = None
-        for i in range(nt):
-            yi = sum(g_ref[i, j] * ws[s * nt + j] for j in range(nt))
-            o_ref[s * nt + i] = (yi + prev * c_ref[i]).astype(out_dtype)
-            if i == nt - 1:
-                y_last = yi
-        prev = y_last + kap * prev
-
-
-def time_solve_pallas(w: jnp.ndarray, GinvT: jnp.ndarray, cvecT: jnp.ndarray,
-                      S: int, nt: int, TN: int, out_dtype,
-                      interpret: bool = False) -> jnp.ndarray:
-    """w: (S*nt, N) -> (S*nt, N) in out_dtype.  GinvT: (nt, nt, N) f32,
-    cvecT: (nt, N) f32.  TN from pick_tile (must divide N).  interpret=True
-    runs the Pallas interpreter (CPU test coverage only)."""
+def time_solve_xla(w, GinvT, cvecT, S: int, nt: int, out_dtype):
+    """w: (S*nt, N) -> (S*nt, N) in out_dtype.  GinvT: (nt, nt, N),
+    cvecT: (nt, N).  The nt x nt solve is unrolled into broadcast FMAs and
+    the step recurrence is an O(log S) associative scan."""
     N = w.shape[-1]
-    rows = TN // 128
-    wf = w.reshape(S * nt, N // 128, 128)
-    gf = GinvT.reshape(nt, nt, N // 128, 128)
-    cf = cvecT.reshape(nt, N // 128, 128)
-    # index-map constants must be i32: under jax_enable_x64 a Python 0
-    # weak-types to i64 while the program id stays i32, and Mosaic rejects
-    # the mixed-type index tuple at lowering (failed to legalize func.return)
-    z = np.int32(0)
-    out = pl.pallas_call(
-        partial(_kernel, S, nt, out_dtype),
-        grid=(N // TN,),
+    ws = w.reshape(S, nt, N)
+    y = jnp.stack([sum(GinvT[i, j] * ws[:, j] for j in range(nt))
+                   for i in range(nt)], axis=1)              # (S, nt, N)
+    u = y[:, -1]
+    kap = jnp.broadcast_to(cvecT[-1], u.shape)
+
+    def comb(first, second):
+        a1, b1 = first
+        a2, b2 = second
+        return a2 * a1, a2 * b1 + b2
+
+    _, last = jax.lax.associative_scan(comb, (kap, u), axis=0)
+    a_prev = jnp.concatenate([jnp.zeros_like(last[:1]), last[:-1]], axis=0)
+    y = y + a_prev[:, None] * cvecT[None]
+    return y.reshape(S * nt, N).astype(out_dtype)
+
+
+def _kernel(w_ref, g_ref, c_ref, o_ref, *, S: int, nt: int, block: int,
+            N: int):
+    # every index is i32: under jax_enable_x64 Python ints become i64
+    # while the program id stays i32, and mixed index types do not lower
+    i32 = np.int32
+    start = pl.program_id(0) * i32(block)
+    mask = start + jnp.arange(block, dtype=jnp.int32) < i32(N)
+    cols = pl.ds(start, block)
+    g = [[plgpu.load(g_ref.at[i32(i), i32(j), cols], mask=mask, other=0.0)
+          .astype(jnp.float32) for j in range(nt)] for i in range(nt)]
+    c = [plgpu.load(c_ref.at[i32(i), cols], mask=mask, other=0.0)
+         .astype(jnp.float32) for i in range(nt)]
+
+    def step(s, prev):
+        row = s * i32(nt)
+        ws = [plgpu.load(w_ref.at[row + i32(j), cols], mask=mask, other=0.0)
+              .astype(jnp.float32) for j in range(nt)]
+        y = [sum(g[i][j] * ws[j] for j in range(nt)) for i in range(nt)]
+        for i in range(nt):
+            plgpu.store(o_ref.at[row + i32(i), cols],
+                        (y[i] + prev * c[i]).astype(o_ref.dtype), mask=mask)
+        return y[nt - 1] + c[nt - 1] * prev
+
+    jax.lax.fori_loop(i32(0), i32(S), step, jnp.zeros((block,), jnp.float32))
+
+
+def time_solve_triton(w, GinvT, cvecT, S: int, nt: int, out_dtype,
+                      block: int = BLOCK, interpret: bool = False):
+    """Pallas kernel through Triton; same contract as time_solve_xla.
+    interpret=True runs the Pallas interpreter (CPU tests only)."""
+    N = w.shape[-1]
+    assert block & (block - 1) == 0, block
+    return pl.pallas_call(
+        partial(_kernel, S=S, nt=nt, block=block, N=N),
+        grid=(pl.cdiv(N, block),),
+        out_shape=jax.ShapeDtypeStruct((S * nt, N), out_dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-        in_specs=[
-            pl.BlockSpec((S * nt, rows, 128), lambda b: (z, b, z),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((nt, nt, rows, 128), lambda b: (z, z, b, z),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((nt, rows, 128), lambda b: (z, b, z),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((S * nt, rows, 128), lambda b: (z, b, z),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((S * nt, N // 128, 128), out_dtype),
-    )(wf, gf, cf)
-    return out.reshape(S * nt, N)
+        name="vanka_time_solve",
+    )(w.reshape(S * nt, N), GinvT, cvecT)
+
+
+def time_solve(w, GinvT, cvecT, S: int, nt: int, out_dtype):
+    """The Triton kernel when lowering for CUDA, the XLA form elsewhere."""
+    return jax.lax.platform_dependent(
+        w, GinvT, cvecT,
+        cuda=lambda *a: time_solve_triton(*a, S, nt, out_dtype),
+        default=lambda *a: time_solve_xla(*a, S, nt, out_dtype))

@@ -1,10 +1,10 @@
 """Sum-factorized matrix-free spatial operators on structured meshes.
 
-TPU-native equivalent of the reference's MatrixFreeOperator (deal.II
+Dense-array equivalent of the reference's MatrixFreeOperator (deal.II
 FEEvaluation cell loops, include/operators.h:967-1187): the weak form
     c_M (w_m u, v) + c_K (w_k grad u, grad v)
 is applied to a whole batch of space-time blocks at once as
-    gather -> per-axis 1D interpolation matmuls (MXU) -> quadrature scaling
+    gather -> per-axis 1D interpolation matmuls -> quadrature scaling
     -> transposed matmuls -> overlap-add scatter.
 
 The block axis of the space-time vector is simply a leading batch dimension,
@@ -72,8 +72,7 @@ def cell_scatter(y: jnp.ndarray, cells: tuple[int, ...], k: int) -> jnp.ndarray:
                       [(0, 0)] * len(lead_shape) + [(0, 1)])
         # shared-node contribution (local dof k of each cell lands on global
         # index (c+1)*k): built by concat + reshape instead of a strided
-        # scatter-add -- the scatter lowering blows the TPU scoped-vmem
-        # budget at 16^3+ and is slower everywhere
+        # scatter-add, which lowers to a serialized scatter
         last = moved[..., :, k:]                         # [..., nc, 1]
         seg = jnp.concatenate(
             [last, jnp.zeros(lead_shape + (nc, k - 1), y.dtype)], axis=-1) \

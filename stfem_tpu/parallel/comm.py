@@ -1,5 +1,5 @@
 """Distributed-communication backend: the single place all explicit
-collectives live (the TPU-native analogue of the reference's MPI layer,
+collectives live (the JAX analogue of the reference's MPI layer,
 SURVEY.md section 2.4 / section 5 "Distributed communication backend").
 
 The reference communicates through deal.II wrappers around MPI:
@@ -10,7 +10,7 @@ The reference communicates through deal.II wrappers around MPI:
     (include/operators.h:1387,1413)
   * tiny metadata gathers (prefix sums, compute_block_matrix.h:24-25)
 
-Here those become exactly three ICI collectives under shard_map:
+Here those become exactly three device collectives under shard_map:
   * halo_accumulate / halo_accumulate_nd -- one-hop jax.lax.ppermute
     add-accumulation of the shared interface dof planes (the compress(add)
     analogue; the gather direction needs no message because the shared
@@ -19,9 +19,10 @@ Here those become exactly three ICI collectives under shard_map:
     (the MPI::sum analogue; weights de-duplicate the replicated planes)
   * gather_metadata -- all_gather for tiny time-direction/control metadata
 
-plus the two-level mesh constructor expressing the pod topology: ICI axes
-inside a slice, a DCN axis across slices (nested mesh axes; shardings that
-only touch ('x','y') keep all traffic on ICI).
+plus the two-level mesh constructor expressing a multi-host topology:
+intra-host axes (cards joined by NVLink) and a 'dcn' axis across hosts
+(nested mesh axes; shardings that only touch ('x','y') keep all traffic
+inside a host).
 
 Time-direction operations (Alpha/Beta mixing, time transfers, wave
 v-recovery) are block-local by construction and never appear here --
@@ -44,7 +45,7 @@ def halo_accumulate(y: jnp.ndarray, axis_name: str, array_axis: int,
     Each shard owns a contiguous cell slab plus the shared dof plane at
     internal interfaces (replicated on both neighbors).  After a local
     operator apply, the first/last planes hold PARTIAL sums; this exchanges
-    them one hop over the ICI ring and adds -- the direct analogue of
+    them one hop to the neighbor shard and adds -- the direct analogue of
     deal.II's compress(add) after a cell loop (reference stmg.h:843-871).
 
     y: local array; `array_axis` is the (positive) axis holding the sharded
@@ -140,15 +141,15 @@ def gather_metadata(x: jnp.ndarray, axis_name: str) -> jnp.ndarray:
 def two_level_mesh(n_slices: int, ici_shape: tuple[int, ...],
                    devices=None,
                    axis_names: tuple[str, ...] = ("dcn", "x", "y")) -> Mesh:
-    """Nested device mesh: leading DCN axis across pod slices, trailing ICI
-    axes within a slice.
+    """Nested device mesh: leading 'dcn' axis across hosts, trailing axes
+    over the cards within a host (ici_shape).
 
-    Shardings that only use the ICI axis names keep every collective on
-    ICI; only reductions/shardings naming the 'dcn' axis cross slices --
-    the two-level topology rule (SURVEY.md section 5).  On real multi-slice
-    hardware the devices argument should come from
-    mesh_utils.create_hybrid_device_mesh; for single-slice or virtual
-    meshes a row-major reshape is the correct layout.
+    Shardings that only use the intra-host axis names keep every
+    collective inside a host; only reductions/shardings naming the 'dcn'
+    axis cross hosts -- the two-level topology rule (SURVEY.md section 5).
+    On real multi-host hardware the devices argument should come from
+    mesh_utils.create_hybrid_device_mesh; for one host or virtual meshes a
+    row-major reshape is the correct layout.
     """
     if devices is None:
         devices = jax.devices()

@@ -6,7 +6,7 @@ along the first grid axis, each device owns its cell slab plus the SHARED dof
 plane at internal interfaces (replicated on both neighbors, like the
 reference's ghosted partitioners, SURVEY.md section 2.4).  One operator apply
 is then: local sum-factorized sweep + ONE neighbor exchange (jax.lax.ppermute
-over the ICI ring) accumulating the interface-plane contributions -- the
+to the adjacent shards) accumulating the interface-plane contributions -- the
 direct analogue of deal.II's ghost-value update/compress around cell loops.
 
 Time-direction operations stay embarrassingly parallel (block-local), exactly

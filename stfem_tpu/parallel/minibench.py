@@ -16,7 +16,7 @@ Validates (VERDICT r2 #5):
     all-gather counts) is reported.
 
 Used by __graft_entry__.dryrun_multichip and tests/test_multichip_bench.py
-(8 virtual CPU devices).  The geometry mirrors the reference's MPI domain
+(8 virtual CPU devices), and on real cards by chip_smoke.py --multichip.  The geometry mirrors the reference's MPI domain
 decomposition (SURVEY.md section 2.4): spatial axes sharded, time blocks
 replicated, halo exchange inserted by GSPMD over the mesh axes.
 """
@@ -76,9 +76,9 @@ def run_sharded_minibench(n_devices: int | None = None, cells: int = 8,
     force = ForceAssembler(mesh, space_degree, space_degree + 1,
                            lambda p, t: heat_problem.rhs(p, t, 1.0),
                            K.mask_np, dtype=dtype)
-    # high-precision residual: the f64 discretization (CPU-native f64;
-    # rectangular per-step tables fusing the one-step coupling, the same
-    # form as the bench's stepwise residual)
+    # high-precision residual: the f64 discretization (rectangular
+    # per-step tables fusing the one-step coupling, the same form as the
+    # bench's stepwise residual)
     import jax as _jax
     x64_was = bool(_jax.config.jax_enable_x64)
     if not x64_was:
@@ -127,7 +127,7 @@ def run_sharded_minibench(n_devices: int | None = None, cells: int = 8,
         jnp.asarray(t_off, jnp.float64), jnp.asarray(f_sc, jnp.float64))
     fslab_ff = ff_from_f64(f_slab64)
     prev_ff = ff_from_f64(jnp.asarray(prev_np))
-    # x64 stays ENABLED: the residual stage runs in native f64 on CPU
+    # x64 stays ENABLED: the residual stage runs in native f64
 
     # the IR pipeline as SEPARATE jitted stages, mirroring bench.py's
     # consolidation: one big outer-solver executable with reltol traced
@@ -148,13 +148,11 @@ def run_sharded_minibench(n_devices: int | None = None, cells: int = 8,
                                    maxiter=40, abstol=1e-30, reltol=reltol)
             return c(res.x), res.iterations
 
-        # high-precision IR residual.  On CPU float64 is NATIVE, so the
-        # residual uses the f64 discretization directly (the reference's
+        # high-precision IR residual in native float64 (the reference's
         # own outer precision, time_integrators.h:56-59) -- bitwise
-        # stronger than the TPU bench's float-float engine, whose ~2000-op
-        # ff graph also compiles pathologically slowly on XLA:CPU
-        # (>13 min measured standalone; the ff path stays TPU-only and is
-        # exercised by bench.py on the real chip).
+        # stronger than the bench's float-float engine, whose ~2000-op ff
+        # graph also compiles pathologically slowly on XLA:CPU (the ff
+        # path is exercised by bench.py).
         @jax.jit
         def jit_resid(prev_hi, prev_lo, xh, xl, fhi, flo):
             x64 = (xh.astype(jnp.float64)

@@ -9,7 +9,7 @@ structural fact that only the spatial direction communicates.
 Strategy (GSPMD): annotate the block vector [n_blocks, *dofgrid] with
 PartitionSpec(None, 'x', 'y'[, 'z']) and jit the whole slab solve; XLA
 partitions the sum-factorization einsums and inserts halo collectives for the
-cell gather/overlap-add scatter over ICI.  Coarse MG levels smaller than the
+cell gather/overlap-add scatter.  Coarse MG levels smaller than the
 device grid degrade to (tiny) all-gathers, mirroring the reference's
 repartitioning policy for coarse levels.  Pipeline/expert parallelism are
 absent by design (absent in the reference, SURVEY.md section 2.4).
@@ -27,11 +27,11 @@ def spatial_mesh(n_devices: int | None = None, dim: int = 2,
                  devices=None, shard_z: bool = False) -> Mesh:
     """Device mesh over the spatial axes.
 
-    For dim >= 2 the default is a near-square 2-axis mesh over (x, y) --
-    two sharded axes already expose all ICI links on current pod slices.
+    For dim >= 2 the default is a near-square 2-axis mesh over (x, y).
     shard_z=True (3D) factors the devices over THREE axes (x, y, z) as
-    near-cubic as possible, matching a 3D-torus slice where each mesh axis
-    rides its own ICI dimension; 1D problems shard x only.
+    near-cubic as possible, which minimizes each shard's halo surface; the
+    cards are joined all to all, so the mesh follows the algorithm alone.
+    1D problems shard x only.
     """
     if devices is None:
         devices = jax.devices()

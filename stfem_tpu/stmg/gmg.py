@@ -1,5 +1,5 @@
 """Space-time multigrid preconditioner (the reference's GMG, stmg.h:1047-1419)
-rebuilt TPU-native.
+rebuilt as one dense on-device program.
 
 One GMG object owns the whole hierarchy: per-level slab operators (in reduced
 precision), cell-Vanka patch inverses, Relaxation/Chebyshev/Identity smoother
@@ -85,10 +85,10 @@ class GMGParams:
     eig_exact: bool = True
     eig_exact_max_n: int = 4_000_000
     # store Vanka patch factors in bfloat16 (zero measured iteration cost,
-    # half the smoother memory/bandwidth on TPU)
+    # half the smoother memory/bandwidth)
     vanka_bf16: bool = False
     # cap on the `variable` doubling (2^(max-l) smoothing steps): bounds the
-    # sequential coarse-level work on TPU while keeping h-robustness;
+    # sequential coarse-level work on-device while keeping h-robustness;
     # 0 = uncapped (deal.II behavior)
     variable_steps_cap: int = 0
     # True: Identity levels contribute nothing (u=0 pre-smooth, no post) --
@@ -188,8 +188,8 @@ class GMG:
             self.coarse_Ainv = self._assemble_direct_coarse()
 
     def _assemble_direct_coarse(self):
-        """Dense inverse of the coarsest slab operator (TPU-natural coarse
-        solver: the coarsest space-time system is a few hundred unknowns, so
+        """Dense inverse of the coarsest slab operator (a matmul-shaped
+        coarse solver: the coarsest space-time system is a few hundred unknowns, so
         ONE assembled inverse replaces the reference's coarse GMRES chain --
         exact coarse correction at one matmul of runtime cost)."""
         import jax
@@ -341,7 +341,7 @@ def _cached_estimate(m_est, v_est, est_shape, est_mask, est_dtype,
     The power iteration is deterministic (fixed start vector), so the
     estimate is a pure function of the operator/smoother inputs; caching it
     across processes removes the per-level estimate compiles+sweeps that
-    dominate warm-start setup (measured ~0.2-3.4 s per level at 8^3).
+    dominate warm-start setup.
     Only clean separable levels (uniform mesh, no coefficient, no vertex
     map) are cached -- exactly the ones the proxy path produces."""
     from .smoother import EigInfo
@@ -535,9 +535,8 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                     info = None
                 else:
                     # big levels: run the jitted power iteration on the
-                    # accelerator (one dispatch) -- on the 1-core host the
-                    # 20 (vmult + vanka) sweeps dominate the whole setup
-                    # (measured 164 s of 200 s at 16^3, scripts/setup_profile)
+                    # accelerator (one dispatch) -- on the host the 20
+                    # (vmult + vanka) sweeps dominate the whole setup
                     m_est, v_est = matrix, vanka
                     est_shape = (n_blocks,) + tuple(lvl.dof_shape)
                     est_mask = K.mask_np
@@ -551,30 +550,17 @@ def build_stmg(mesh_fine: StructuredMesh, fe_degree: int, space_degree: int,
                             [p] * mesh_l.dim, [0.0] * mesh_l.dim,
                             [p * float(mesh_l.h[d])
                              for d in range(mesh_l.dim)], refinement=0)
-                        # proxy estimates run host-side; the XLA apply is
-                        # what we want there (interpret-mode pallas would
-                        # dominate the 20 power sweeps)
-                        import os as _os
-                        _old_pg = _os.environ.get("STFEM_PALLAS_GRID")
-                        _os.environ["STFEM_PALLAS_GRID"] = "0"
-                        try:
-                            Kp_ = LaplaceMassOperator(pm, deg_l, deg_l + 1,
-                                                      0.0, 1.0, dtype=dtype)
-                            Mp_ = LaplaceMassOperator(pm, deg_l, deg_l + 1,
-                                                      1.0, 0.0, dtype=dtype)
-                            m_est = SystemMatrix(Kp_, Mp_, Alpha_l, Beta_l,
-                                                 precision=None)
-                            v_est = PreconditionVanka(
-                                Kp_, Mp_, Alpha_l, Beta_l, dtype=dtype,
-                                storage_dtype=(jnp.bfloat16
-                                               if params.vanka_bf16
-                                               else None),
-                                n_steps=n_at_once[l])
-                        finally:
-                            if _old_pg is None:
-                                _os.environ.pop("STFEM_PALLAS_GRID", None)
-                            else:
-                                _os.environ["STFEM_PALLAS_GRID"] = _old_pg
+                        Kp_ = LaplaceMassOperator(pm, deg_l, deg_l + 1,
+                                                  0.0, 1.0, dtype=dtype)
+                        Mp_ = LaplaceMassOperator(pm, deg_l, deg_l + 1,
+                                                  1.0, 0.0, dtype=dtype)
+                        m_est = SystemMatrix(Kp_, Mp_, Alpha_l, Beta_l,
+                                             precision=None)
+                        v_est = PreconditionVanka(
+                            Kp_, Mp_, Alpha_l, Beta_l, dtype=dtype,
+                            storage_dtype=(jnp.bfloat16
+                                           if params.vanka_bf16 else None),
+                            n_steps=n_at_once[l])
                         est_shape = (n_blocks,) + tuple(pm.dof_shape(deg_l))
                         est_mask = Kp_.mask_np
                         # shrink the proxy in TIME too: lambda_max(P A) is
@@ -945,7 +931,7 @@ def build_stmg_stokes(mesh_fine: StructuredMesh, fe_degree: int,
     # rho(I-PA) 1.32 in 3D with the GMRES(10) coarse -- while the exact
     # pinv solve yields 8/9 iterations vs the 12/12 goldens and a clean
     # spectrum (scripts/stokes_spectrum_lab.py, stokes3d_lab.py).  One
-    # assembled pinv matmul is also the TPU-natural coarse solver (no
+    # assembled pinv matmul is also a matmul-shaped coarse solver (no
     # sequential Krylov/smoother chain on-device); iteration counts stay
     # AT OR BELOW the reference goldens, which the one-sided parity bound
     # allows.

@@ -39,10 +39,8 @@ def initial_guess(shape_blocks, mask, dtype) -> jnp.ndarray:
 import functools
 
 
-@functools.partial(jax.jit, static_argnums=(3, 4))
-def _power_jit(matrix, precond, v0, n_iterations, no_pallas=False):
-    from ..ops import pallas_grid
-
+@functools.partial(jax.jit, static_argnums=(3,))
+def _power_jit(matrix, precond, v0, n_iterations):
     def body(_, carry):
         v, lam = carry
         # bf16 level operators return bf16; the estimate arithmetic stays
@@ -52,25 +50,18 @@ def _power_jit(matrix, precond, v0, n_iterations, no_pallas=False):
         v = w / jnp.linalg.norm(w.reshape(-1))
         return v, lam
 
-    def run():
-        v = v0 / jnp.linalg.norm(v0.reshape(-1))
-        _, lam = jax.lax.fori_loop(0, n_iterations, body,
-                                   (v, jnp.zeros((), v.dtype)))
-        return lam
-
-    if no_pallas:
-        with pallas_grid.disabled():
-            return run()
-    return run()
+    v = v0 / jnp.linalg.norm(v0.reshape(-1))
+    _, lam = jax.lax.fori_loop(0, n_iterations, body,
+                               (v, jnp.zeros((), v.dtype)))
+    return lam
 
 
 def power_estimate(matrix, precond, v0: jnp.ndarray,
-                   n_iterations: int = 20, no_pallas: bool = False) -> float:
+                   n_iterations: int = 20) -> float:
     """deal.II internal::power_iteration: returns <v,(PA)v> after n its.
     matrix/precond are pytree modules with .vmult (arrays travel as jit
-    arguments, keeping the compiled payload small).  no_pallas traces the
-    XLA fallback of any pallas-enabled module (host-side estimates)."""
-    return float(_power_jit(matrix, precond, v0, n_iterations, no_pallas))
+    arguments, keeping the compiled payload small)."""
+    return float(_power_jit(matrix, precond, v0, n_iterations))
 
 
 @dataclass
@@ -80,8 +71,7 @@ class EigInfo:
 
 
 def arnoldi_lambda_max(matrix, precond, shape_blocks, mask, dtype,
-                       tol: float = 1e-5, ncv: int = 24,
-                       no_pallas: bool | None = None) -> float | None:
+                       tol: float = 1e-5, ncv: int = 24) -> float | None:
     """CONVERGED largest |eigenvalue| of P A via implicitly-restarted
     Arnoldi (scipy.sparse.linalg.eigs) with the deterministic start vector.
 
@@ -98,18 +88,11 @@ def arnoldi_lambda_max(matrix, precond, shape_blocks, mask, dtype,
     """
     import scipy.sparse.linalg as spla
 
-    from ..ops import pallas_grid
-
     n = int(np.prod(shape_blocks))
     v0 = np.asarray(initial_guess(shape_blocks, mask, jnp.float32)
                     ).reshape(-1).astype(np.float64)
     if not np.any(v0):
         return None
-    # arnoldi sweeps always run host-side on proxy-sized operators (the
-    # per-level remote jit compiles an accelerator path would need cost
-    # more than the small matvecs save)
-    if no_pallas is None:
-        no_pallas = jax.default_backend() != "cpu"
 
     @jax.jit
     def apply(v):
@@ -117,11 +100,7 @@ def arnoldi_lambda_max(matrix, precond, shape_blocks, mask, dtype,
         return w.reshape(-1).astype(jnp.float32)
 
     def matvec(v):
-        x = jnp.asarray(v, jnp.float32)
-        if no_pallas:
-            with pallas_grid.disabled():
-                return np.asarray(apply(x), np.float64)
-        return np.asarray(apply(x), np.float64)
+        return np.asarray(apply(jnp.asarray(v, jnp.float32)), np.float64)
 
     op = spla.LinearOperator((n, n), matvec=matvec, dtype=np.float64)
     try:
@@ -145,8 +124,8 @@ def estimate_eigenvalues(matrix, precond, shape_blocks, mask, dtype,
     because deal.II's power estimate UNDERSHOOTS the true lambda_max by
     about the 1.2 factor -- measured, scripts/eig_parity_lab.py).
     device: optional explicit device for the jitted power iteration (pass
-    the TPU during setup -- the caller must have device_put matrix/precond
-    there already)."""
+    the accelerator during host-pinned setup -- the caller must have
+    device_put matrix/precond there already)."""
     if method == "arnoldi":
         lam = arnoldi_lambda_max(matrix, precond, shape_blocks, mask, dtype)
         if lam is not None:
@@ -154,11 +133,7 @@ def estimate_eigenvalues(matrix, precond, shape_blocks, mask, dtype,
     v0 = initial_guess(shape_blocks, mask, dtype)
     if device is not None:
         v0 = jax.device_put(v0, device)
-    # host-executed estimates (device=None under a TPU default backend)
-    # trace the XLA fallback -- interpret-mode pallas kernels would
-    # dominate the sweeps
-    no_pallas = device is None and jax.default_backend() != "cpu"
-    est = power_estimate(matrix, precond, v0, n_iterations, no_pallas)
+    est = power_estimate(matrix, precond, v0, n_iterations)
     return EigInfo(min_eigenvalue=est, max_eigenvalue=safety_factor * est)
 
 

@@ -1,4 +1,4 @@
-"""Cell-wise Vanka patch smoother, TPU-native.
+"""Cell-wise Vanka patch smoother for dense batched accelerators.
 
 The reference extracts per-cell submatrices of the assembled (Trilinos) K and
 M, builds the space-time patch matrix B = Alpha (x) K_loc + Beta (x) M_loc,
@@ -9,7 +9,7 @@ Here there is no sparse-matrix library at all: element matrices come straight
 from quadrature (ops.spatial.element_matrices), the assembled coupling is
 reconstructed on-device in a dense *banded* form indexed by per-axis offsets
 in [-k, k], patches are one gather away, and the inverses are one batched
-jnp.linalg.inv -- everything dense, batched, MXU-shaped.
+jnp.linalg.inv -- everything dense, batched, matmul-shaped.
 """
 from __future__ import annotations
 
@@ -183,7 +183,7 @@ class PreconditionVanka:
     row-scaled by valence.
 
     Two application modes:
-      * mode="fastdiag" (default): TPU-first factorization exploiting the
+      * mode="fastdiag" (default): factorization exploiting the
         Kronecker patch structure.  With the generalized eigenbasis
         K_loc V = M_loc V diag(lam), V^T M_loc V = I, the patch inverse is
             B^{-1} = (I (x) V) [per-i (lam_i Alpha + Beta)^{-1}] (I (x) V^T),
@@ -259,7 +259,7 @@ class PreconditionVanka:
 
         # the whole heavy build (element matrices -> banded assembly -> patch
         # extraction -> Kronecker patch matrices -> batched inversion) is ONE
-        # jitted program: fast on CPU and TPU alike, no eager-op dispatch
+        # jitted program: no eager per-primitive dispatch on any backend
         def build(K_op_, M_op_, fidx, vloc, A__, B__):
             Kp = _band_flat(K_op_, fidx)[fidx]         # (C, A, A) patches
             Mp = _band_flat(M_op_, fidx)[fidx]
@@ -325,18 +325,16 @@ class PreconditionVanka:
             sep = separable_eigenbasis(K_op, M_op)
         self.Wdn = self.Wup = None
         self.GinvT = self.cvecT = self.TTg = None
-        self.pallas_grid = False
         if sep is not None and _os.environ.get(
                 "STFEM_GRID_VANKA", "1") != "0":
-            # GRID apply mode (TPU-first): fold take-gather, the valence
-            # scaling D^{-1}, and the per-axis eigenbasis V_d into ONE
-            # global banded matmul per axis ((nc*(k+1)) x (nc*k+1)); the
-            # transposed matrices perform the overlap-add scatter on the
-            # MXU.  The per-position time solve runs on a FLAT trailing
-            # axis (elementwise per position, so ordering is free -- the
-            # naive interleaved layout's (k+1)-sized trailing axis wastes
-            # 96% of each TPU vector tile and measured 7x SLOWER than the
-            # cell-major path; flat is layout-perfect).
+            # GRID apply mode: fold take-gather, the valence scaling
+            # D^{-1}, and the per-axis eigenbasis V_d into ONE global
+            # banded matmul per axis ((nc*(k+1)) x (nc*k+1)); the
+            # transposed matrices perform the overlap-add scatter as
+            # matmuls.  The per-position time solve runs on a FLAT
+            # trailing axis (elementwise per position, so ordering is
+            # free; a (k+1)-sized trailing axis would leave most of each
+            # vector register idle).
             lam_np, v_axes = sep
             sdt = storage_dtype if storage_dtype is not None else dtype
             # the per-step time-solve factors stay f32 even for bf16 level
@@ -362,44 +360,21 @@ class PreconditionVanka:
                 Wdn.append(jnp.asarray(dn, sdt))
                 Wup.append(jnp.asarray(up, sdt))
             self.Wdn, self.Wup = Wdn, Wup
-            # fused per-block Pallas chains when the per-block working set
-            # fits VMEM (TPU; interpret-mode on CPU only when forced) --
-            # their down output is in REVERSED axis order, so the
-            # per-position factors are built in the matching order
-            from ..ops.pallas_grid import factor_perm, fits_vmem
-            pg_default = "0"  # measured slower than the XLA grid path
-            self.pallas_grid = (
-                _os.environ.get("STFEM_PALLAS_GRID", pg_default) == "1"
-                and self.dim in (2, 3)
-                and int(np.prod(K_op.dof_shape)) >= int(_os.environ.get(
-                    "STFEM_PALLAS_MIN_DOFS", "16384"))
-                and fits_vmem(K_op.dof_shape, Wdn, dtype))
             lam_grid = lam_np.reshape(tuple(int(c) for c in cells)
                                       + (k + 1,) * self.dim)
-            if self.pallas_grid:
-                perm = factor_perm(self.dim)
-            else:
-                # flat interleaved (c1,a1,c2,a2,...) order
-                perm = []
-                for d in range(self.dim):
-                    perm += [d, self.dim + d]
+            # flat interleaved (c1,a1,c2,a2,...) order
+            perm = []
+            for d in range(self.dim):
+                perm += [d, self.dim + d]
             lam_il = jnp.asarray(
                 np.transpose(lam_grid, perm).reshape(-1), fdt)
-            # fused Pallas time-solve (TPU only, via platform_dependent):
-            # the elementwise multi-step solve is HBM-bound in XLA form
-            # (~4 S*nt*N f32 temporaries); the kernel keeps each lane tile
-            # in VMEM -- measured 6.5 -> 1.1 ms at 16^3 ntao=32
-            self._ts_tile = None
-            if (self.n_steps > 1
-                    and np.dtype(dtype) != np.dtype(np.float64)
-                    and _os.environ.get(
-                        "STFEM_PALLAS_TIMESOLVE", "1") != "0"):
-                from ..ops.pallas_timesolve import pick_tile
-                self._ts_tile = pick_tile(
-                    int(np.prod([int(cells[d]) * (k + 1)
-                                 for d in range(self.dim)])),
-                    self.n_steps, self.n_blocks // self.n_steps,
-                    np.dtype(dtype).itemsize)
+            # multi-step time solve: the Triton kernel on CUDA
+            # (ops/pallas_timesolve.py) for f32/bf16 levels, the XLA form
+            # otherwise; STFEM_PALLAS_TIMESOLVE=0 keeps the XLA form
+            self.ts_kernel = (self.n_steps > 1
+                              and np.dtype(dtype) != np.dtype(np.float64)
+                              and _os.environ.get(
+                                  "STFEM_PALLAS_TIMESOLVE", "1") != "0")
             if self.n_steps > 1:
                 a__ = jnp.asarray(a_nt, fdt)
                 b__ = jnp.asarray(b_nt, fdt)
@@ -429,10 +404,11 @@ class PreconditionVanka:
         if sep is not None and _os.environ.get(
                 "STFEM_SEP_VANKA_APPLY", "0") != "1":
             # materialize the dense V = (x)_d V_d from the per-axis factors
-            # (jitted broadcast product -- still NO batched eigh): the dense
-            # bf16 V matmul measures FASTER on TPU than the factor-form
-            # sum-factorized apply (tiny (k+1) contractions lower to
-            # transpose-heavy batched matmuls).  Factor-form apply stays
+            # (jitted broadcast product -- still NO batched eigh): one dense
+            # V matmul instead of the factor-form sum-factorized apply,
+            # whose tiny (k+1) contractions lower to transpose-heavy
+            # batched matmuls (not yet timed on the GPU; ROADMAP Speed 5).
+            # Factor-form apply stays
             # available via STFEM_SEP_VANKA_APPLY=1 for memory-bound grids
             # (V is C*A^2 dense vs KBs of factors).
             lam_np, v_axes = sep
@@ -539,59 +515,18 @@ class PreconditionVanka:
         """Grid apply: per-axis banded matmuls (gather+valence+V fused),
         flat-layout per-position time solve, transposed matmuls scatter."""
         from ..ops.gridsumfac import axis_apply
-        from ..ops.pallas_grid import chain_down_order, is_disabled
+        from ..ops.pallas_timesolve import time_solve, time_solve_xla
         nb = src.shape[0]
         w = src.astype(self.dtype)
-        use_pallas = self.pallas_grid and not is_disabled()
-        bypass = self.pallas_grid and not use_pallas
-        if use_pallas:
-            from ..ops.pallas_grid import chain_down
-            w = chain_down(w, self.Wdn)
-        else:
-            for d in range(self.dim):
-                w = axis_apply(self.Wdn[d], w, 1 + d)
-            if bypass:
-                # factors were built in the pallas chain order; match it
-                dord = chain_down_order(self.dim)
-                w = jnp.transpose(w, (0,) + tuple(1 + d for d in dord))
+        for d in range(self.dim):
+            w = axis_apply(self.Wdn[d], w, 1 + d)
         gshape = w.shape[1:]
         N = int(np.prod(gshape))
         if self.n_steps > 1:
             S, nt = self.n_steps, nb // self.n_steps
-
-            def _solve_xla(wf):
-                ws = wf.reshape(S, nt, N)
-                # nt x nt solve unrolled into broadcast FMAs (see vmult)
-                y = jnp.stack(
-                    [sum(self.GinvT[i, j] * ws[:, j] for j in range(nt))
-                     for i in range(nt)], axis=1)            # (S, nt, N)
-                u = y[:, -1]
-                kap = jnp.broadcast_to(self.cvecT[-1], u.shape)
-
-                def comb(first, second):
-                    a1, b1 = first
-                    a2, b2 = second
-                    return a2 * a1, a2 * b1 + b2
-
-                _, last = jax.lax.associative_scan(comb, (kap, u), axis=0)
-                a_prev = jnp.concatenate(
-                    [jnp.zeros_like(last[:1]), last[:-1]], axis=0)
-                y = y + a_prev[:, None] * self.cvecT[None]
-                return y.reshape(nb, N).astype(self.dtype)
-
-            wf = w.reshape(nb, N)
-            ts_tile = getattr(self, "_ts_tile", None)
-            if ts_tile is not None:
-                from ..ops.pallas_timesolve import time_solve_pallas
-
-                def _solve_tpu(wf_):
-                    return time_solve_pallas(wf_, self.GinvT, self.cvecT,
-                                             S, nt, ts_tile, self.dtype)
-
-                w = jax.lax.platform_dependent(wf, tpu=_solve_tpu,
-                                               default=_solve_xla)
-            else:
-                w = _solve_xla(wf)
+            solve = time_solve if self.ts_kernel else time_solve_xla
+            w = solve(w.reshape(nb, N), self.GinvT, self.cvecT, S, nt,
+                      self.dtype)
             w = w.reshape((nb,) + gshape)
         else:
             ws = w.reshape(nb, N)
@@ -606,16 +541,6 @@ class PreconditionVanka:
         # keep bf16 temporaries (the f32 time-solve factors promote the
         # middle; the cast confines that to the small solve stage)
         w = w.astype(self.dtype)
-        if use_pallas:
-            from ..ops.pallas_grid import chain_up
-            return chain_up(w, self.Wup)
-        if bypass:
-            dord = chain_down_order(self.dim)
-            inv = [0] * self.dim
-            for i, d in enumerate(dord):
-                inv[d] = i
-            w = jnp.transpose(w, (0,) + tuple(1 + inv[d]
-                                              for d in range(self.dim)))
         for d in range(self.dim):
             w = axis_apply(self.Wup[d], w, 1 + d)
         return w.astype(self.dtype)
@@ -640,8 +565,7 @@ class PreconditionVanka:
             # T-MAJOR layout (the gathered residual's natural order: no
             # 13.8 MB relayouts).  The nt x nt matvec is UNROLLED into
             # broadcast FMAs: XLA lowers the equivalent einsum
-            # ("cqij,csjq->csiq") to a transpose-heavy batched matmul that
-            # measures 34x slower on TPU (0.97 ms vs 0.029 ms)
+            # ("cqij,csjq->csiq") to a transpose-heavy batched matmul
             C = int(np.prod(self.cells))
             A = (self.k + 1) ** self.dim
             S, nt = self.n_steps, nb // self.n_steps

@@ -33,7 +33,7 @@ class StokesSystemMatrix:
         gamma/zeta: (T, 1) RHS columns for vmult_slice.
 
         precision: matmul precision for the apply (see SystemMatrix -- the
-        OUTER operator needs true-f32 products on TPU; preconditioner level
+        OUTER operator needs true-f32 products; preconditioner level
         operators pass None)."""
         self.precision = precision
         self.S = stokes_op
@@ -87,8 +87,8 @@ class StokesSystemMatrix:
         zeta couples the velocity mass (CGP: Zeta; DG: the jump column which
         the scalar tables store in the Gamma slot).
 
-        Runs under the same matmul-precision guard as vmult: on TPU the
-        default bf16 matmul precision puts a ~1e-4 relative error into the
+        Runs under the same matmul-precision guard as vmult: a
+        reduced-precision default matmul puts a ~1e-4 relative error into the
         rhs, which silently floors the WHOLE slab solve at 1e-4 true
         residual on every slab with a nonzero previous value (root-caused
         round 5: the f32 outer converges on the polluted rhs while the ff

@@ -1,7 +1,7 @@
 """Campaign orchestration: parameter-file generation with content-hashed
 names (the reference's tests/json/generate.py + generate_parameters.sh) and
 job-script emission (job_generator.py) retargeted from SLURM/MPI to
-single-host TPU invocations of the drivers."""
+single-host invocations of the drivers."""
 from __future__ import annotations
 
 import hashlib
@@ -54,7 +54,7 @@ def generate_convergence_campaign(out_dir: str, problem: str = "heat",
 def emit_job_script(config_path: str, out_dir: str, dim: int = 3,
                     driver: str = "stfem_tpu.drivers.tp01") -> str:
     """Single-host runner script (the reference's job_generator.py emits
-    SLURM/srun scripts; here one TPU host runs the jitted sharded solver)."""
+    SLURM/srun scripts; here one host runs the jitted sharded solver)."""
     name = Path(config_path).stem
     script = Path(out_dir) / f"run_{name}.sh"
     script.parent.mkdir(parents=True, exist_ok=True)

@@ -1,9 +1,9 @@
 """Named-scope wall timing + optional jax.profiler trace annotations.
 
 Replaces the reference's deal.II TimerOutput scopes ("vmult", "vanka", "gmg",
-"step"; SURVEY.md section 5).  On the async TPU runtime a scope forces a
-readback barrier only when `sync=True`; traces feed the jax profiler when a
-capture is active.
+"step"; SURVEY.md section 5).  Device work is asynchronous: a scope waits for
+it (block_until_ready) only when given a `sync_value`; traces feed the jax
+profiler when a capture is active.
 """
 from __future__ import annotations
 

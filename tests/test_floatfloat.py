@@ -1,7 +1,7 @@
 """Float-float (double-single) residual arithmetic parity vs native f64.
 
-The ff path exists for the TPU IR residual (ops/floatfloat.py): on CPU f64
-is native, so the f64 results here are the exact oracle.  The contract is
+The ff path is the bench's default IR residual (ops/floatfloat.py): on CPU
+f64 is native, so the f64 results here are the exact oracle.  The contract is
 ~2^-48-level agreement -- far below the 1e-9 absolute accuracy the
 true-1e-8 iterative refinement needs even under the catastrophic
 cancellation of r = b - A x with x converged to the f32 floor.
@@ -155,106 +155,6 @@ def test_ff_slab_residual_parity():
     np.testing.assert_allclose(float(bnorm), scale, rtol=1e-5)
 
 
-def test_ff_pallas_kernel_interpret_parity():
-    """kron_pair_ff_pallas (interpret mode) vs the XLA ff form -- the fused
-    Mosaic kernel is gated off by default (compile blowup) but must stay
-    numerically exact for when the toolchain unblocks it (ADVICE r3)."""
-    from stfem_tpu.ops.pallas_ffresid import kron_pair_ff_pallas, supports
-
-    mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=0)
-    deg = 3
-    K64 = LaplaceMassOperator(mesh, deg, deg + 1, 0.0, 1.0,
-                              dtype=jnp.float64)
-    M64 = LaplaceMassOperator(mesh, deg, deg + 1, 1.0, 0.0,
-                              dtype=jnp.float64)
-    kron = KronAssembled(K64, M64, jnp.float64)
-    kff = KronAssembledFF(kron)
-    n = int(kff.Md[0][0].shape[1])
-    assert supports(3, [n, n, n]) and kff._pallas_ok
-
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal((2, n, n, n))
-    xh, xl = ff_from_f64(jnp.asarray(x))
-    (Kh, Kl), (Mh, Ml) = kff._pair_xla((xh, xl))
-    Kh2, Kl2, Mh2, Ml2 = kron_pair_ff_pallas(
-        xh, xl, kff._Dmh, kff._Dml, kff._Dah, kff._Dal, kff.k,
-        interpret=True)
-    K_ref = np.asarray(ff_to_f64((Kh, Kl)))
-    K_ker = np.asarray(ff_to_f64((Kh2, Kl2)))
-    M_ref = np.asarray(ff_to_f64((Mh, Ml)))
-    M_ker = np.asarray(ff_to_f64((Mh2, Ml2)))
-    scale = np.max(np.abs(K_ref))
-    np.testing.assert_allclose(K_ker, K_ref, atol=1e-12 * scale)
-    np.testing.assert_allclose(M_ker, M_ref, atol=1e-12)
-
-
-def test_ff_pallas9_interpret_parity():
-    """KronPallas9 (single-apply 9-roll Mosaic kernel, ops/pallas_ffband)
-    in interpret mode vs the XLA ff oracle -- the engine is reachable via
-    STFEM_FF_KRON=pallas9 (floatfloat.py) so it must stay numerically
-    exact even while default-off (VERDICT r4 weak #6)."""
-    from stfem_tpu.ops.pallas_ffband import KronPallas9
-
-    mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=0)
-    deg = 3
-    K64 = LaplaceMassOperator(mesh, deg, deg + 1, 0.0, 1.0,
-                              dtype=jnp.float64)
-    M64 = LaplaceMassOperator(mesh, deg, deg + 1, 1.0, 0.0,
-                              dtype=jnp.float64)
-    kron = KronAssembled(K64, M64, jnp.float64)
-    kp9 = KronPallas9(kron, interpret=True)
-    assert kp9._cubic
-    rng = np.random.default_rng(11)
-    x = rng.standard_normal((2,) + mesh.dof_shape(deg))
-    xff = ff_from_f64(jnp.asarray(x))
-    (Kh, Kl), (Mh, Ml) = kp9.base._pair_xla(xff)
-    (Kh2, Kl2), (Mh2, Ml2) = kp9.pair(xff)
-    K_ref = np.asarray(ff_to_f64((Kh, Kl)))
-    K_ker = np.asarray(ff_to_f64((Kh2, Kl2)))
-    M_ref = np.asarray(ff_to_f64((Mh, Ml)))
-    M_ker = np.asarray(ff_to_f64((Mh2, Ml2)))
-    scale = np.max(np.abs(K_ref))
-    np.testing.assert_allclose(K_ker, K_ref, atol=1e-12 * scale)
-    np.testing.assert_allclose(M_ker, M_ref, atol=1e-12)
-    # need_K / need_M slicing parity (the pair() flat-unpack routing)
-    Konly, _ = kp9.pair(xff, need_K=True, need_M=False)
-    _, Monly = kp9.pair(xff, need_K=False, need_M=True)
-    np.testing.assert_allclose(np.asarray(ff_to_f64(Konly)), K_ref,
-                               atol=1e-12 * scale)
-    np.testing.assert_allclose(np.asarray(ff_to_f64(Monly)), M_ref,
-                               atol=1e-12)
-
-
-def test_mxu_kron_jit_parity():
-    """KronMXU (exact-sliced bf16 matmuls, ops/mxukron.py) vs the ff
-    oracle UNDER JIT -- the integer-slice exactness must survive XLA
-    optimization (jnp.round, not the +2^23 trick, which XLA folds away)."""
-    import jax
-
-    from stfem_tpu.ops.mxukron import KronMXU
-
-    mesh = StructuredMesh([2, 2, 2], [0.0] * 3, [1.0] * 3, refinement=1)
-    deg = 3
-    K64 = LaplaceMassOperator(mesh, deg, deg + 1, 0.0, 1.0,
-                              dtype=jnp.float64)
-    M64 = LaplaceMassOperator(mesh, deg, deg + 1, 1.0, 0.0,
-                              dtype=jnp.float64)
-    kron = KronAssembled(K64, M64, jnp.float64)
-    kmx = KronMXU(kron)
-    rng = np.random.default_rng(7)
-    # mixed magnitudes exercise the dynamic power-of-two scale ladder
-    x = rng.standard_normal((3,) + mesh.dof_shape(deg)) \
-        * np.logspace(-4, 2, 3)[:, None, None, None]
-    Kx, Mx = kron.pair(jnp.asarray(x))
-    Kf, Mf = jax.jit(kmx.pair)(ff_from_f64(jnp.asarray(x)))
-    sK = float(np.max(np.abs(np.asarray(Kx))))
-    np.testing.assert_allclose(np.asarray(ff_to_f64(Kf)), np.asarray(Kx),
-                               atol=2e-13 * sK)
-    sM = float(np.max(np.abs(np.asarray(Mx))))
-    np.testing.assert_allclose(np.asarray(ff_to_f64(Mf)), np.asarray(Mx),
-                               atol=2e-13 * sM)
-
-
 def test_ff_wave_slab_residual_parity():
     """FFSlabResidual with the Schur-reduced WAVE tables (full previous-
     step coupling + K-path/velocity rhs tables) vs the f64 whole-slab
@@ -302,3 +202,64 @@ def test_ff_wave_slab_residual_parity():
     assert err < 1e-12, err
     np.testing.assert_allclose(float(rnorm),
                                np.linalg.norm(r_ref.reshape(-1)), rtol=1e-5)
+
+
+# ---- error-free transforms, property-tested against exact arithmetic ----
+
+from fractions import Fraction  # noqa: E402
+
+import jax  # noqa: E402
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+from hypothesis.extra.numpy import arrays  # noqa: E402
+
+from stfem_tpu.ops.floatfloat import _split, _two_prod, _two_sum  # noqa: E402
+
+# magnitudes bounded so no product or sum over/underflows f32
+_F32 = st.one_of(st.just(0.0), st.floats(2.0 ** -50, 2.0 ** 50, width=32),
+                 st.floats(-2.0 ** 50, -2.0 ** -50, width=32))
+_VEC = arrays(np.float32, 64, elements=_F32)
+_jit_prod = jax.jit(_two_prod)
+_jit_sum = jax.jit(_two_sum)
+_jit_split = jax.jit(_split)
+
+
+def _exact(x):
+    return [Fraction(float(v)) for v in np.asarray(x, np.float64)]
+
+
+@settings(max_examples=60, deadline=None)
+@given(_VEC, _VEC)
+def test_two_prod_exact(a, b):
+    """p + err equals the exact product a * b (an f32 product has at most
+    48 significant bits, so the f64 product is exact too)."""
+    p, err = _jit_prod(jnp.asarray(a), jnp.asarray(b))
+    exact = a.astype(np.float64) * b.astype(np.float64)
+    np.testing.assert_array_equal(np.asarray(p), (a * b).astype(np.float32))
+    for pi, ei, ref in zip(_exact(p), _exact(err), _exact(exact)):
+        assert pi + ei == ref
+
+
+@settings(max_examples=60, deadline=None)
+@given(_VEC, _VEC)
+def test_two_sum_exact(a, b):
+    """s + err equals the exact sum a + b, with s the rounded f32 sum."""
+    s, err = _jit_sum(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_array_equal(np.asarray(s), a + b)
+    for si, ei, ai, bi in zip(_exact(s), _exact(err), _exact(a), _exact(b)):
+        assert si + ei == ai + bi
+
+
+@settings(max_examples=60, deadline=None)
+@given(_VEC)
+def test_split_halves_exact(a):
+    """hi + lo == a exactly, and each half fits in 12 significant bits (so
+    the four partial products of _two_prod are exact in f32)."""
+    hi, lo = _jit_split(jnp.asarray(a))
+    hi, lo = np.asarray(hi, np.float64), np.asarray(lo, np.float64)
+    np.testing.assert_array_equal(hi + lo, a.astype(np.float64))
+    for h in (hi, lo):
+        nz = h[h != 0.0]
+        mant, _ = np.frexp(nz)
+        np.testing.assert_array_equal(mant * 2.0 ** 12,
+                                      np.round(mant * 2.0 ** 12))

@@ -69,30 +69,30 @@ RATE_ATOL = 0.02
 ITER_ATOL = 1.05
 
 
-def _tp01_cases():
-    secs = parse_golden(TP01_GOLDEN)
-    cases = []
-    for ci, name in enumerate(TP01_CONFIGS):
-        blocks = secs[ci].blocks
-        n_deg = len(blocks) if FULL else 2
-        for bi in range(n_deg):
-            n_ref = len(blocks[bi].rows) if FULL else 2
-            cases.append(pytest.param(ci, bi, n_ref,
-                                      id=f"{name}-k{blocks[bi].k}"))
-    return cases
+# the reference's default sweep has at most 3 degree blocks per config; the
+# trimmed CI ladder takes the first 2 (heat/wave) or 1 (Stokes).  Cases are
+# built WITHOUT reading the goldens: every pytest-xdist worker must collect
+# the same tests whether or not the reference tree is mounted, and a
+# missing golden skips inside the test.
+N_DEG_FULL = 3
 
 
-def _tp03_cases():
-    secs = parse_golden(TP03_GOLDEN)
-    cases = []
-    for ci, name in enumerate(TP03_CONFIGS):
-        blocks = secs[ci].blocks
-        n_deg = len(blocks) if FULL else 1
-        for bi in range(n_deg):
-            n_ref = len(blocks[bi].rows) if FULL else 2
-            cases.append(pytest.param(ci, bi, n_ref,
-                                      id=f"{name}-k{blocks[bi].k}"))
-    return cases
+def _cases(configs, n_deg):
+    return [pytest.param(ci, bi, id=f"{name}-deg{bi}")
+            for ci, name in enumerate(configs)
+            for bi in range(N_DEG_FULL if FULL else n_deg)]
+
+
+def _golden_block(path, ci, bi):
+    """(block, n_ref) of one golden degree block; skips when the reference
+    goldens are not mounted or the sweep has no such block."""
+    if not os.path.exists(path):
+        pytest.skip(f"reference golden not mounted ({path})")
+    blocks = parse_golden(path)[ci].blocks
+    if bi >= len(blocks):
+        pytest.skip(f"golden has {len(blocks)} degree blocks")
+    blk = blocks[bi]
+    return blk, (len(blk.rows) if FULL else 2)
 
 
 def _check_block(blk, results, err_fields, label):
@@ -134,8 +134,8 @@ def _check_block(blk, results, err_fields, label):
             f"vs golden {iters_gold}"
 
 
-@pytest.mark.parametrize("ci,bi,n_ref", _tp01_cases())
-def test_tp01_golden_tables(ci, bi, n_ref):
+@pytest.mark.parametrize("ci,bi", _cases(TP01_CONFIGS, 2))
+def test_tp01_golden_tables(ci, bi):
     import jax
     jax.clear_caches()   # full-ladder sweeps accumulate hundreds of
     # XLA:CPU executables in one module; without clearing, the backend
@@ -145,7 +145,7 @@ def test_tp01_golden_tables(ci, bi, n_ref):
     from stfem_tpu.drivers.tp01 import run_single
 
     name = TP01_CONFIGS[ci]
-    blk = parse_golden(TP01_GOLDEN)[ci].blocks[bi]
+    blk, n_ref = _golden_block(TP01_GOLDEN, ci, bi)
     p = Parameters.parse(os.path.join(REF_JSON, f"{name}.json"), 2)
     k = p.fe_degree + bi
     results = []
@@ -159,15 +159,15 @@ def test_tp01_golden_tables(ci, bi, n_ref):
                  f"{name} k={k}")
 
 
-@pytest.mark.parametrize("ci,bi,n_ref", _tp03_cases())
-def test_tp03stokes_golden_tables(ci, bi, n_ref):
+@pytest.mark.parametrize("ci,bi", _cases(TP03_CONFIGS, 1))
+def test_tp03stokes_golden_tables(ci, bi):
     import jax
     jax.clear_caches()
     from stfem_tpu.config import Parameters
     from stfem_tpu.drivers.tp03stokes import parse_stokes_extra, run_single
 
     name = TP03_CONFIGS[ci]
-    blk = parse_golden(TP03_GOLDEN)[ci].blocks[bi]
+    blk, n_ref = _golden_block(TP03_GOLDEN, ci, bi)
     p = Parameters.parse(os.path.join(REF_JSON, f"{name}.json"), 2)
     extra_path = p.additional_file
     if extra_path and not os.path.isabs(extra_path):

@@ -173,13 +173,13 @@ def test_psum_dot_parity():
 
 
 def test_two_level_mesh():
-    """Nested DCN x ICI mesh: axis layout and ICI-only sharding rule."""
+    """Nested host x card mesh: axis layout and intra-host sharding rule."""
     from stfem_tpu.parallel.comm import two_level_mesh
 
     m = two_level_mesh(2, (2, 2))
     assert m.axis_names == ("dcn", "x", "y")
     assert m.devices.shape == (2, 2, 2)
-    # a sharding naming only ICI axes replicates across the DCN axis
+    # a sharding naming only intra-host axes replicates across hosts
     from jax.sharding import NamedSharding
     s = NamedSharding(m, PartitionSpec(None, "x", "y"))
     arr = jax.device_put(jnp.zeros((2, 4, 4)), s)

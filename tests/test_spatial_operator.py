@@ -217,10 +217,9 @@ def test_kron_matvec_parity(dim, cells, nonuni, monkeypatch):
 
 
 def test_kron_banded_f64_parity():
-    """The banded diagonal form of the emulated-f64 Kronecker apply (the
-    TPU branch of KronAssembled.pair; 4.4x fewer software-double-double
-    ops, scripts/banded64_lab.py) must equal the dense 1D matmuls to
-    machine precision, for uniform and non-uniform tensor steps."""
+    """The banded diagonal form of the Kronecker apply (the sharded halo
+    mode of KronAssembled.pair) must equal the dense 1D matmuls to machine
+    precision, for uniform and non-uniform tensor steps."""
     from stfem_tpu.ops.kronfac import KronAssembled
 
     rng = np.random.default_rng(7)
@@ -238,7 +237,7 @@ def test_kron_banded_f64_parity():
         M = LaplaceMassOperator(mesh, k, k + 1, 1.0, 0.0,
                                 dtype=jnp.float64)
         kr = KronAssembled(K, M, jnp.float64)
-        assert kr._f64 and len(kr.Md) == mesh.dim
+        assert len(kr.Md) == mesh.dim
         x = jnp.asarray(rng.standard_normal(
             (2,) + tuple(mesh.dof_shape(k))))
         kd, md = kr._pair_impl(x, True, True, banded=False)
@@ -247,16 +246,16 @@ def test_kron_banded_f64_parity():
                                    rtol=1e-13, atol=1e-13)
         np.testing.assert_allclose(np.asarray(mb), np.asarray(md),
                                    rtol=1e-13, atol=1e-14)
-        # hardware dtypes ALSO carry the banded factors now (round 5:
-        # enable_halo_mode may flip them to the banded pad+slice form
-        # AFTER construction for sharded runs), but default to the dense
-        # MXU path; force_banded must produce the identical result
+        # f32 operators carry the banded factors too (enable_halo_mode
+        # may flip them to the banded pad+slice form AFTER construction
+        # for sharded runs) but default to the dense matmuls; force_banded
+        # must produce the identical result
         kr32 = KronAssembled(
             LaplaceMassOperator(mesh, k, k + 1, 0.0, 1.0,
                                 dtype=jnp.float32),
             LaplaceMassOperator(mesh, k, k + 1, 1.0, 0.0,
                                 dtype=jnp.float32), jnp.float32)
-        assert not kr32._f64 and len(kr32.Md) == mesh.dim
+        assert len(kr32.Md) == mesh.dim
         assert not kr32.force_banded and not kr32._shifted
         x32 = x.astype(jnp.float32)
         kd32, md32 = kr32.pair(x32)
@@ -295,56 +294,3 @@ def test_system_matrix_zero_column_reduction():
                                    rtol=1e-13, atol=1e-14)
         # the square slab system has no zero columns -- must not trigger
         assert SystemMatrix(K, M, A, B, precision=None)._col_reduced is None
-
-
-def test_pallas_grid_matvec_parity(monkeypatch):
-    """Fused per-block Pallas chains (ops/pallas_grid.py, interpret mode on
-    CPU) must agree with the XLA grid path: uniform, non-uniform tensor
-    steps, and a separable coefficient; a NON-separable coefficient must
-    fall back to the XLA grid path."""
-    from stfem_tpu.system import SystemMatrix
-    from stfem_tpu.time.tables import get_fe_time_weights
-    from stfem_tpu.types import TimeStepType
-
-    monkeypatch.setenv("STFEM_PALLAS_GRID", "1")
-    monkeypatch.setenv("STFEM_PALLAS_MIN_DOFS", "1")
-    monkeypatch.setenv("STFEM_KRON_MATVEC", "0")  # force the grid path
-    rng = np.random.default_rng(0)
-    A, B, _, _ = get_fe_time_weights(TimeStepType.DG, 2, 0.125, 2)
-    cases = []
-    mesh_u = StructuredMesh([3, 3, 3], [0.0] * 3, [1.0] * 3)
-    cases.append((mesh_u, None))
-    mesh_n = StructuredMesh(
-        [3, 4], [0.0] * 2, [1.0] * 2,
-        axis_steps=[np.sort(rng.uniform(0.5, 1.5, c)) for c in (3, 4)])
-    cases.append((mesh_n, None))
-    cases.append((StructuredMesh([4, 4], [0.0] * 2, [1.0] * 2),
-                  lambda p: 1.0 + 0.5 * np.sin(3 * p[..., 0])))
-    for mesh, cf in cases:
-        k = 3
-        K = LaplaceMassOperator(mesh, k, k + 1, 0.0, 1.0,
-                                dtype=jnp.float64, coefficient=cf)
-        M = LaplaceMassOperator(mesh, k, k + 1, 1.0, 0.0,
-                                dtype=jnp.float64, coefficient=cf)
-        mp = SystemMatrix(K, M, A, B, precision=None)
-        assert mp._grid is not None and mp._grid.pallas
-        monkeypatch.setenv("STFEM_PALLAS_GRID", "0")
-        mx = SystemMatrix(K, M, A, B, precision=None)
-        monkeypatch.setenv("STFEM_PALLAS_GRID", "1")
-        x = jnp.asarray(
-            rng.standard_normal((A.shape[0],) + tuple(K.dof_shape)))
-        for fp, fx in [(mp.vmult, mx.vmult), (mp.Tvmult, mx.Tvmult)]:
-            np.testing.assert_allclose(np.asarray(fp(x)), np.asarray(fx(x)),
-                                       rtol=1e-11, atol=1e-13)
-        np.testing.assert_allclose(np.asarray(mp.vmult_slice(x[0])),
-                                   np.asarray(mx.vmult_slice(x[0])),
-                                   rtol=1e-11, atol=1e-13)
-    # non-separable coefficient -> XLA fallback
-    mesh = StructuredMesh([4, 4], [0.0] * 2, [1.0] * 2)
-    cf2 = lambda p: 1.0 + 0.5 * np.sin(3 * (p[..., 0] + p[..., 1]))
-    K = LaplaceMassOperator(mesh, 3, 4, 0.0, 1.0, dtype=jnp.float64,
-                            coefficient=cf2)
-    M = LaplaceMassOperator(mesh, 3, 4, 1.0, 0.0, dtype=jnp.float64,
-                            coefficient=cf2)
-    mc = SystemMatrix(K, M, A, B, precision=None)
-    assert mc._grid is not None and not mc._grid.pallas

@@ -146,8 +146,8 @@ def test_vanka_fastdiag_scan_equals_dense():
 def test_direct_coarse_solver():
     """coarse_grid_smoother_type='Direct': the assembled-and-inverted
     coarsest slab operator gives the same FGMRES iteration counts as the
-    reference-style coarse GMRES (measured identical on TPU; pinned here on
-    CPU), at one matmul of runtime cost."""
+    reference-style coarse GMRES (pinned here on CPU), at one matmul of
+    runtime cost."""
     import jax.numpy as jnp
     from stfem_tpu.krylov import fgmres
     from stfem_tpu.mesh.grid import StructuredMesh
@@ -180,100 +180,149 @@ def test_direct_coarse_solver():
     assert abs(iters["Direct"] - iters["GMRES"]) <= 1
 
 
-def test_pallas_grid_vanka_parity(monkeypatch):
-    """Pallas grid Vanka (fused per-block chains, reversed-order factors)
-    must agree with the XLA grid apply to machine precision."""
-    import jax.numpy as jnp
+def _time_solve_reference(w, GinvT, cvecT, S, nt):
+    """Sequential f64 block-bidiagonal recurrence (the plain oracle)."""
     import numpy as np
 
-    from stfem_tpu.mesh.grid import StructuredMesh
-    from stfem_tpu.ops.spatial import LaplaceMassOperator
-    from stfem_tpu.stmg.vanka import PreconditionVanka
-    from stfem_tpu.time.tables import get_fe_time_weights
-
-    monkeypatch.setenv("STFEM_PALLAS_GRID", "1")
-    monkeypatch.setenv("STFEM_PALLAS_MIN_DOFS", "1")
-    rng = np.random.default_rng(1)
-    for dim, cells, k, ns in [(2, (4, 4), 3, 1), (3, (3, 3, 3), 4, 4)]:
-        mesh = StructuredMesh(list(cells), [0.0] * dim, [1.0] * dim)
-        K = LaplaceMassOperator(mesh, k, k + 1, 0.0, 1.0)
-        M = LaplaceMassOperator(mesh, k, k + 1, 1.0, 0.0)
-        A, B, _, _ = get_fe_time_weights(TimeStepType.DG, 2, 0.125, ns)
-        vp = PreconditionVanka(K, M, A, B, n_steps=ns)
-        assert vp.pallas_grid
-        monkeypatch.setenv("STFEM_PALLAS_GRID", "0")
-        vx = PreconditionVanka(K, M, A, B, n_steps=ns)
-        monkeypatch.setenv("STFEM_PALLAS_GRID", "1")
-        assert not vx.pallas_grid
-        x = jnp.asarray(rng.standard_normal(
-            (A.shape[0],) + tuple(K.dof_shape))) * K.mask
-        np.testing.assert_allclose(np.asarray(vp.vmult(x)),
-                                   np.asarray(vx.vmult(x)),
-                                   rtol=1e-9, atol=1e-12)
-
-
-def test_pallas_timesolve_kernel_parity():
-    """The fused Pallas time-solve kernel (ops/pallas_timesolve.py,
-    interpret mode on CPU) must reproduce the sequential block-bidiagonal
-    recurrence exactly, and the grid Vanka must pick a lane tile on
-    128-divisible eigen grids."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from stfem_tpu.mesh.grid import StructuredMesh
-    from stfem_tpu.ops.pallas_timesolve import pick_tile, time_solve_pallas
-    from stfem_tpu.ops.spatial import LaplaceMassOperator
-    from stfem_tpu.stmg.vanka import PreconditionVanka
-    from stfem_tpu.time.tables import get_fe_time_weights
-
-    S, nt, N = 4, 3, 1024
-    TN = pick_tile(N, S, nt, 4)
-    assert TN is not None and N % TN == 0 and TN % 128 == 0
-    rng = np.random.default_rng(11)
-    w = rng.standard_normal((S * nt, N)).astype(np.float32)
-    GinvT = (0.3 * rng.standard_normal((nt, nt, N))).astype(np.float32)
-    cvecT = rng.uniform(-0.9, 0.9, (nt, N)).astype(np.float32)
-
-    # sequential reference recurrence
-    ws = w.reshape(S, nt, N)
-    y = np.einsum("ijn,sjn->sin", GinvT, ws)
-    out_ref = np.empty_like(y)
-    prev = np.zeros(N, np.float32)
+    N = w.shape[-1]
+    ws = np.asarray(w, np.float64).reshape(S, nt, N)
+    G = np.asarray(GinvT, np.float64)
+    c = np.asarray(cvecT, np.float64)
+    y = np.einsum("ijn,sjn->sin", G, ws)
+    out = np.empty_like(y)
+    prev = np.zeros(N)
     for s in range(S):
-        out_ref[s] = y[s] + prev[None] * cvecT
-        prev = y[s, nt - 1] + cvecT[nt - 1] * prev
-    out = time_solve_pallas(jnp.asarray(w), jnp.asarray(GinvT),
-                            jnp.asarray(cvecT), S, nt, TN, jnp.float32,
-                            interpret=True)
-    np.testing.assert_allclose(np.asarray(out), out_ref.reshape(S * nt, N),
-                               rtol=1e-5, atol=1e-5)
+        out[s] = y[s] + prev[None] * c
+        prev = y[s, nt - 1] + c[nt - 1] * prev
+    return out.reshape(S * nt, N)
 
-    # integration: a grid Vanka whose eigen grid is 128-divisible picks a
-    # tile; on CPU platform_dependent lowers the XLA branch (parity with
-    # the scan path is covered by test_vanka_fastdiag_scan_equals_dense)
-    mesh = StructuredMesh([8, 8], [0.0, 0.0], [1.0, 1.0])
-    K = LaplaceMassOperator(mesh, 3, 4, 0.0, 1.0, dtype=jnp.float32)
-    M = LaplaceMassOperator(mesh, 3, 4, 1.0, 0.0, dtype=jnp.float32)
-    A, B, _, _ = get_fe_time_weights(TimeStepType.DG, 2, 0.125, 4)
-    v = PreconditionVanka(K, M, A, B, n_steps=4)
-    assert v._ts_tile is not None
-    x = jnp.asarray(rng.standard_normal(
-        (A.shape[0],) + tuple(K.dof_shape))) * K.mask
-    assert np.isfinite(np.asarray(v.vmult(x))).all()
+
+def _time_solve_inputs(S, nt, N, dtype, seed=11):
+    import jax.numpy as jnp
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = jnp.asarray(rng.standard_normal((S * nt, N)), dtype)
+    GinvT = jnp.asarray(0.3 * rng.standard_normal((nt, nt, N)), jnp.float32)
+    cvecT = jnp.asarray(rng.uniform(-0.9, 0.9, (nt, N)), jnp.float32)
+    return w, GinvT, cvecT
+
+
+_TS_CASES = [(4, 3, 1000, "float32"), (32, 3, 777, "float32"),
+             (5, 2, 1536, "bfloat16"), (8, 3, 3 * 17 ** 2, "bfloat16")]
+
+
+@pytest.mark.parametrize("S,nt,N,dt", _TS_CASES)
+def test_pallas_timesolve_kernel_parity(S, nt, N, dt):
+    """The Triton time-solve kernel (ops/pallas_timesolve.py, interpret
+    mode on CPU) reproduces the sequential recurrence on position counts
+    that are not a power of two (masked tail tile): 1e-5 relative for f32
+    storage, bf16 resolution of the output for bf16 storage."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from stfem_tpu.ops.pallas_timesolve import time_solve_triton
+
+    dtype = jnp.dtype(dt)
+    w, GinvT, cvecT = _time_solve_inputs(S, nt, N, dtype)
+    ref = _time_solve_reference(w, GinvT, cvecT, S, nt)
+    out = time_solve_triton(w, GinvT, cvecT, S, nt, dtype, block=256,
+                            interpret=True)
+    assert out.shape == (S * nt, N) and out.dtype == dtype
+    tol = 1e-5 if dtype == jnp.float32 else 2.0 ** -8
+    err = np.max(np.abs(np.asarray(out, np.float64) - ref))
+    assert err <= tol * np.max(np.abs(ref)), err
+
+
+@pytest.mark.parametrize("S,nt,N,dt", _TS_CASES)
+def test_xla_timesolve_parity(S, nt, N, dt):
+    """The XLA time solve (the non-CUDA path) against the same oracle."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from stfem_tpu.ops.pallas_timesolve import time_solve_xla
+
+    dtype = jnp.dtype(dt)
+    w, GinvT, cvecT = _time_solve_inputs(S, nt, N, dtype, seed=3)
+    ref = _time_solve_reference(w, GinvT, cvecT, S, nt)
+    out = jax.jit(time_solve_xla, static_argnums=(3, 4, 5))(
+        w, GinvT, cvecT, S, nt, dtype)
+    assert out.dtype == dtype
+    tol = 1e-5 if dtype == jnp.float32 else 2.0 ** -8
+    err = np.max(np.abs(np.asarray(out, np.float64) - ref))
+    assert err <= tol * np.max(np.abs(ref)), err
 
 
 def test_pallas_timesolve_tile_legality():
-    """pick_tile must only return Mosaic-legal tiles: lane dim 128, row
-    count divisible by 8 (or the full array), dividing N; N = 40^3 (the
-    8^3 bench eigen grid) has no legal tile and must return None."""
-    from stfem_tpu.ops.pallas_timesolve import pick_tile
+    """Triton blocks must be powers of two; the grid covers N with one
+    masked tail tile (cdiv), so any N is legal and N = 80^3 (the 16^3
+    bench eigen grid) needs no padding."""
+    import jax
+    import jax.numpy as jnp
 
-    for N in (80 ** 3, 40 ** 3, 160 ** 3, 1024, 999):
-        t = pick_tile(N, 32, 3, 2)
-        if t is None:
-            continue
-        rows = t // 128
-        assert t % 128 == 0 and N % t == 0
-        assert rows % 8 == 0 or rows == N // 128
-    assert pick_tile(40 ** 3, 32, 3, 2) is None
-    assert pick_tile(999, 32, 3, 2) is None
+    from stfem_tpu.ops.pallas_timesolve import BLOCK, time_solve_triton
+
+    assert BLOCK & (BLOCK - 1) == 0
+    w, GinvT, cvecT = _time_solve_inputs(2, 3, 100, jnp.float32)
+    with pytest.raises(AssertionError):
+        time_solve_triton(w, GinvT, cvecT, 2, 3, jnp.float32, block=96,
+                          interpret=True)
+    N = 80 ** 3
+    args = (jax.ShapeDtypeStruct((96, N), jnp.bfloat16),
+            jax.ShapeDtypeStruct((3, 3, N), jnp.float32),
+            jax.ShapeDtypeStruct((3, N), jnp.float32))
+    f = jax.jit(lambda a, b, c: time_solve_triton(a, b, c, 32, 3,
+                                                  jnp.bfloat16))
+    text = f.trace(*args).lower(lowering_platforms=("cuda",)).as_text()
+    assert f"grid_x = {-(-N // BLOCK)} : i32" in text
+
+
+def _lowered_text(fn, args, platform):
+    import jax
+    return jax.jit(fn).trace(*args).lower(
+        lowering_platforms=(platform,)).as_text()
+
+
+def test_time_solve_platform_choice(monkeypatch):
+    """time_solve lowers to the Triton kernel for CUDA and to plain XLA for
+    the CPU; the grid Vanka routes f32/bf16 multi-step levels through it,
+    f64 levels and STFEM_PALLAS_TIMESOLVE=0 through the XLA form."""
+    import jax.numpy as jnp
+
+    from stfem_tpu.mesh.grid import StructuredMesh
+    from stfem_tpu.ops.pallas_timesolve import time_solve
+    from stfem_tpu.ops.spatial import LaplaceMassOperator
+    from stfem_tpu.stmg.vanka import PreconditionVanka
+    from stfem_tpu.time.tables import get_fe_time_weights
+
+    triton = "__gpu$xla.gpu.triton"
+    args = _time_solve_inputs(4, 3, 1000, jnp.float32)
+    solve = lambda w, g, c: time_solve(w, g, c, 4, 3, jnp.float32)  # noqa
+    assert triton in _lowered_text(solve, args, "cuda")
+    assert triton not in _lowered_text(solve, args, "cpu")
+
+    mesh = StructuredMesh([4, 4], [0.0, 0.0], [1.0, 1.0])
+    A, B, _, _ = get_fe_time_weights(TimeStepType.DG, 2, 0.125, 4)
+
+    def vanka(dtype):
+        K = LaplaceMassOperator(mesh, 3, 4, 0.0, 1.0, dtype=dtype)
+        M = LaplaceMassOperator(mesh, 3, 4, 1.0, 0.0, dtype=dtype)
+        v = PreconditionVanka(K, M, A, B, n_steps=4)
+        x = jnp.zeros((A.shape[0],) + tuple(K.dof_shape), dtype)
+        return v, x
+
+    v32, x32 = vanka(jnp.float32)
+    assert v32.ts_kernel
+    assert triton in _lowered_text(lambda x: v32.vmult(x), (x32,), "cuda")
+    assert triton not in _lowered_text(lambda x: v32.vmult(x), (x32,),
+                                       "cpu")
+    v64, x64 = vanka(jnp.float64)
+    assert not v64.ts_kernel
+    assert triton not in _lowered_text(lambda x: v64.vmult(x), (x64,),
+                                       "cuda")
+    monkeypatch.setenv("STFEM_PALLAS_TIMESOLVE", "0")
+    v_off, _ = vanka(jnp.float32)
+    assert not v_off.ts_kernel
+    assert triton not in _lowered_text(lambda x: v_off.vmult(x), (x32,),
+                                       "cuda")
